@@ -1,0 +1,75 @@
+"""Minimal observability for the port: spans, gauges, a build log.
+
+The port keeps the span and gauge call sites of the modules it ports,
+but not the reference's full plane (tracing export, telemetry, the
+movement ledger). This module is what those call sites need:
+
+* ``span(name, **attrs)`` — a timing context manager; a no-op until
+  ``enable()`` is called, then it appends ``(name, seconds, attrs)`` to
+  ``SPANS``.
+* ``REGISTRY.gauge_group(name, defaults)`` — a get-or-create dict of
+  counters. The port's registry is its own object, so nothing here can
+  reset or share a gauge of the JAX package.
+* ``compile_log`` — build and shape-cache events (hit / miss with
+  seconds), written by ``ops/build.py``.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from contextlib import contextmanager
+from typing import Deque, Dict, Optional, Tuple
+
+_ENABLED = [False]
+SPANS: Deque[Tuple[str, float, dict]] = deque(maxlen=4096)
+
+
+def enable(on: bool = True) -> None:
+    _ENABLED[0] = bool(on)
+
+
+@contextmanager
+def span(name: str, **attrs):
+    if not _ENABLED[0]:
+        yield
+        return
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        SPANS.append((name, time.perf_counter() - t0, attrs))
+
+
+class _Registry:
+    def __init__(self) -> None:
+        self._groups: Dict[str, Dict[str, float]] = {}
+        self._lock = threading.Lock()
+
+    def gauge_group(self, name: str, defaults: Dict[str, float],
+                    help: str = "") -> Dict[str, float]:
+        """Get or create the group ``name``; an existing group keeps its
+        values (a second import never resets a counter)."""
+        with self._lock:
+            group = self._groups.get(name)
+            if group is None:
+                group = self._groups[name] = dict(defaults)
+            return group
+
+
+REGISTRY = _Registry()
+
+
+class _CompileLog:
+    def __init__(self) -> None:
+        self.events: Deque[Tuple[str, str, Optional[float]]] = deque(
+            maxlen=1024
+        )
+
+    def record(self, kind: str, label: str,
+               seconds: Optional[float] = None) -> None:
+        self.events.append((kind, label, seconds))
+
+
+compile_log = _CompileLog()

@@ -1,0 +1,123 @@
+"""Build the port's CUDA kernels at first use and bind them with ctypes.
+
+Every ``csrc/*.cu`` of the package is compiled by ``nvcc`` for sm_90a,
+one process per source, all started together, then linked into one
+shared library with a plain C interface. The library goes into
+``khipu_tpu_torch/_build/`` under a name keyed by a hash of the sources
+and flags, so a second process reuses it. Nothing is downloaded; only
+the package's own sources are compiled. Importing this module runs
+nothing: ``load()`` builds on the first kernel launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import List
+
+from khipu_tpu_torch.observability import compile_log
+
+PKG = Path(__file__).resolve().parents[1]
+BUILD_DIR = PKG / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_LIB = None
+_LOCK = threading.Lock()
+# what the last build printed (ptxas register and spill report)
+BUILD_LOG: List[str] = []
+
+
+def sources() -> List[Path]:
+    return sorted(PKG.glob("*/csrc/*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _key(srcs: List[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(srcs: List[Path], so: Path) -> None:
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}_{threading.get_ident()}"
+    objs = [BUILD_DIR / f"{s.stem}_{tag}.o" for s in srcs]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for s, o in zip(srcs, objs)
+    ]
+    BUILD_LOG.clear()
+    failed = []
+    for s, p in zip(srcs, procs):
+        out, _ = p.communicate()
+        BUILD_LOG.append(f"{s.name}: {out.strip()}")
+        if p.returncode:
+            failed.append(f"{s.name}:\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = so.with_suffix(f".{tag}.tmp")
+    link = subprocess.run(
+        [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if link.returncode:
+        raise RuntimeError("nvcc link failed:\n" + link.stdout)
+    os.replace(tmp, so)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.khipu_keccak256_rows.argtypes = [p, p, ll, i, i, p]
+    lib.khipu_keccak256_rows.restype = i
+    lib.khipu_fixpoint_substitute.argtypes = [p, ll, p, p, p, ll, p, p, ll, i, p]
+    lib.khipu_fixpoint_substitute.restype = i
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' library, built from the package sources if needed."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    with _LOCK:
+        if _LIB is not None:
+            return _LIB
+        srcs = sources()
+        so = BUILD_DIR / f"libkhipu_kernels_{_key(srcs)}.so"
+        label = f"{so.name} ({', '.join(s.name for s in srcs)})"
+        if so.exists():
+            compile_log.record("hit", label)
+        else:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            t0 = time.perf_counter()
+            _compile(srcs, so)
+            compile_log.record("miss", label, time.perf_counter() - t0)
+        lib = ctypes.CDLL(str(so))
+        _bind(lib)
+        _LIB = lib
+        return lib

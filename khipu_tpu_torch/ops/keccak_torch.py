@@ -1,0 +1,145 @@
+"""Keccak-256 in plain PyTorch: the plain version of kernel K1.
+
+The sponge runs on int64 tensors shaped [25, N] (lane, message), so each
+step of a round is one tensor op over every lane of every message. The
+CPU build of torch has no ``~``, ``<<`` or ``>>`` for uint64, so lanes
+are int64: left shifts wrap as they would on u64, and every right shift
+is masked to stay logical. The same code runs on CUDA tensors, where
+``chip_smoke.py`` holds the kernel against it.
+
+Also here: the host-side padding helper, copied from the JAX package's
+``ops/keccak_jnp.py`` (that module imports jax), and the rate-class
+bucketing of variable-length batches.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, List, Sequence
+
+import numpy as np
+import torch
+
+from khipu_tpu_torch.base.keccak import ROTATION, ROUND_CONSTANTS
+
+RATE = 136  # keccak-256 rate in bytes
+LANES_PER_BLOCK = RATE // 8  # 17 u64 lanes absorbed per block
+
+
+def _signed(v: int) -> int:
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+_RC = tuple(_signed(rc) for rc in ROUND_CONSTANTS)
+# per-lane rho rotation, lane index x + 5y
+_ROT = [0] * 25
+for _x in range(5):
+    for _y in range(5):
+        _ROT[_x + 5 * _y] = ROTATION[_x][_y]
+# pi: destination lane y + 5((2x + 3y) % 5) takes source lane x + 5y
+_PI_SRC = [0] * 25
+for _x in range(5):
+    for _y in range(5):
+        _PI_SRC[_y + 5 * ((2 * _x + 3 * _y) % 5)] = _x + 5 * _y
+
+
+@functools.lru_cache(maxsize=None)
+def _consts(device: torch.device):
+    """Per-device constant tensors of the permutation: rho's left and
+    right shifts, its low-bit masks, and pi's source lanes."""
+    rot = torch.tensor(_ROT, dtype=torch.int64, device=device)[:, None]
+    return (
+        rot,
+        (64 - rot) % 64,
+        (torch.ones_like(rot) << rot) - 1,  # low `rot` bits
+        torch.tensor(_PI_SRC, dtype=torch.int64, device=device),
+    )
+
+
+def _rotl(x: torch.Tensor, n: int) -> torch.Tensor:
+    return (x << n) | ((x >> (64 - n)) & ((1 << n) - 1))
+
+
+def f1600(a: torch.Tensor) -> torch.Tensor:
+    """Keccak-f[1600] over int64[25, N]; returns the new state."""
+    rot, rrot, rmask, pi_src = _consts(a.device)
+    n = a.shape[1]
+    for rc in _RC:
+        s = a.view(5, 5, n)  # [y, x, N]
+        # theta
+        c = s[0] ^ s[1] ^ s[2] ^ s[3] ^ s[4]  # [x, N]
+        d = torch.roll(c, 1, 0) ^ _rotl(torch.roll(c, -1, 0), 1)
+        a = (s ^ d[None]).reshape(25, n)
+        # rho (per-lane rotation; lane 0 rotates by 0 and its mask is 0)
+        a = (a << rot) | ((a >> rrot) & rmask)
+        # pi
+        b = a[pi_src].view(5, 5, n)
+        # chi
+        a = (b ^ (~torch.roll(b, -1, 1) & torch.roll(b, -2, 1))).reshape(25, n)
+        # iota
+        a[0] ^= rc
+    return a
+
+
+def absorb_padded(padded_u8: torch.Tensor) -> torch.Tensor:
+    """Hash multi-rate padded rows: u8[N, nblocks*136] -> u8[N, 32],
+    on the tensor's own device."""
+    if padded_u8.dtype != torch.uint8 or padded_u8.dim() != 2:
+        raise ValueError("expected u8[N, nblocks*136]")
+    n, width = padded_u8.shape
+    if width == 0 or width % RATE:
+        raise ValueError(f"row width {width} is not a multiple of {RATE}")
+    nblocks = width // RATE
+    words = padded_u8.contiguous().view(torch.int64)  # [N, nblocks*17]
+    a = torch.zeros(25, n, dtype=torch.int64, device=padded_u8.device)
+    for b in range(nblocks):
+        blk = words[:, b * LANES_PER_BLOCK : (b + 1) * LANES_PER_BLOCK]
+        a[:LANES_PER_BLOCK] ^= blk.t()
+        a = f1600(a)
+    return a[:4].t().contiguous().view(torch.uint8).reshape(n, 32)
+
+
+def pad_to_words(messages: Sequence[bytes], nblocks: int) -> np.ndarray:
+    """Host-side multi-rate padding, batch-major: uint32[B, nblocks*34]
+    (``.view(np.uint8)`` gives the padded rows). The pad XORs, so a
+    message of length 135 mod 136 carries 0x81 in one byte."""
+    batch = len(messages)
+    buf = np.zeros((batch, nblocks * RATE), dtype=np.uint8)
+    for j, m in enumerate(messages):
+        if len(m) // RATE + 1 != nblocks:
+            raise ValueError(
+                f"message {j} needs {len(m)//RATE + 1} blocks, "
+                f"class is {nblocks}"
+            )
+        buf[j, : len(m)] = np.frombuffer(m, dtype=np.uint8)
+        buf[j, len(m)] ^= 0x01
+        buf[j, nblocks * RATE - 1] ^= 0x80
+    return buf.view("<u4")  # (B, nblocks*34)
+
+
+def hash_messages(
+    messages: Sequence[bytes],
+    device: torch.device,
+    absorb: Callable[[torch.Tensor], torch.Tensor],
+) -> List[bytes]:
+    """Hash variable-length messages in input order: bucket by rate
+    class, pad on the host, ``absorb`` each bucket on ``device`` and
+    scatter the digests back. Buckets are not padded to fixed counts:
+    a CUDA kernel needs no shape bucketing."""
+    buckets = {}
+    for idx, m in enumerate(messages):
+        buckets.setdefault(len(m) // RATE + 1, []).append(idx)
+    out: List[bytes] = [b""] * len(messages)
+    for nblocks, idxs in sorted(buckets.items()):
+        rows = pad_to_words([messages[i] for i in idxs], nblocks).view(np.uint8)
+        blob = absorb(torch.from_numpy(rows).to(device)).cpu().numpy().tobytes()
+        for j, i in enumerate(idxs):
+            out[i] = blob[32 * j : 32 * j + 32]
+    return out
+
+
+def keccak256_batch_plain(messages: Sequence[bytes], device="cpu") -> List[bytes]:
+    """The plain version of ``ops.keccak.keccak256_batch`` on ``device``
+    (on the card it is the kernel's oracle, and a hasher for the level
+    loop that launches no kernel)."""
+    return hash_messages(messages, torch.device(device), absorb_padded)

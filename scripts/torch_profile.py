@@ -1,0 +1,149 @@
+#!/usr/bin/env python3
+"""Profile the port's state-root pipeline on one NVIDIA card.
+
+    python3 scripts/torch_profile.py [--seed N] [--out DIR]
+
+Runs the two main-path workloads of ``chip_smoke.py`` on the card — a
+fresh 100,000-account ``bulk_build(fused=True)`` and a 16-block x
+400-write window ``finalize(fused=True, return_mapping=True)`` — once
+with only the port's spans on, then once under ``torch.profiler``. For
+each it prints one JSON line: host wall seconds, span seconds, the
+device's busy seconds (the union of device activity intervals in the
+trace), the device's idle share of the profiled wall time, and device
+time by kernel name. Chrome traces go to ``DIR`` (default
+``_profiles/``, which ``.gitignore`` lists). Exits 2 without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def device_profile(torch, prof, wall_s: float, top: int = 8) -> dict:
+    """Busy time, idle share and per-kernel device time from a trace."""
+    from torch.autograd import DeviceType
+
+    spans = sorted(
+        (e.time_range.start, e.time_range.end)
+        for e in prof.events()
+        if e.device_type == DeviceType.CUDA
+    )
+    busy_us, cur_start, cur_end = 0.0, None, None
+    for start, end in spans:
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                busy_us += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    if cur_end is not None:
+        busy_us += cur_end - cur_start
+    kernels = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", 0.0)
+        if dev_us > 0:
+            kernels.append({"name": e.key[:80], "count": e.count,
+                            "device_ms": dev_us / 1e3})
+    kernels.sort(key=lambda k: -k["device_ms"])
+    busy_s = busy_us / 1e6
+    return {
+        "device_busy_s": busy_s,
+        "device_idle_share": (1.0 - busy_s / wall_s) if busy_s else None,
+        "device_events": len(spans),
+        "kernels": kernels[:top],
+    }
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--accounts", type=int, default=100_000)
+    ap.add_argument("--blocks", type=int, default=16)
+    ap.add_argument("--writes", type=int, default=400)
+    ap.add_argument("--new-accounts", type=int, default=20)
+    ap.add_argument("--out", default=os.path.join(ROOT, "_profiles"))
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_profile: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from khipu_tpu_torch import observability, workloads
+    from khipu_tpu_torch.ops import build
+    from khipu_tpu_torch.state import load_reference_nodes
+    from khipu_tpu_torch.trie import bulk, deferred
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip(), flush=True)
+    os.makedirs(args.out, exist_ok=True)
+    dev = torch.device("cuda")
+    build.load()
+
+    def measure(name, fn, **extra):
+        observability.SPANS.clear()
+        observability.enable()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        observability.enable(False)
+        spans = {}
+        for span_name, sec, _ in observability.SPANS:
+            spans[span_name] = spans.get(span_name, 0.0) + sec
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t0
+        prof.export_chrome_trace(os.path.join(args.out, f"{name}.json"))
+        emit({"workload": name, "wall_s": wall, "spans_s": spans,
+              "profiled_wall_s": pwall, **device_profile(torch, prof, pwall),
+              **extra})
+        return result
+
+    pairs = workloads.fresh_state_pairs(args.accounts, device=dev)
+    bulk.bulk_build(pairs[:1000], fused=True, device=dev)  # warm-up
+    root, nodes = measure(
+        "bulk_100k",
+        lambda: bulk.bulk_build(pairs, fused=True, device=dev),
+        accounts=args.accounts,
+    )
+
+    session = deferred.DeferredMPT(load_reference_nodes(nodes), root_hash=root)
+    blocks = workloads.TransferBlocks(pairs, np.random.default_rng(args.seed))
+    for _ in range(args.blocks):
+        for k, v in blocks.next(args.writes, args.new_accounts).items():
+            session = session.put(k, v)
+        session.force_hashed_root()
+    measure(
+        "window_16x400",
+        lambda: deferred.finalize(session, return_mapping=True, fused=True,
+                                  device=dev),
+        blocks=args.blocks, writes=args.writes,
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,97 @@
+"""The port stands alone: importing every khipu_tpu_torch module loads
+neither JAX nor the khipu_tpu reference package, and an entry point that
+is asked for the card where there is none raises instead of running on
+the CPU."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from khipu_tpu_torch.ops import build, keccak_cuda
+from khipu_tpu_torch.ops.keccak import keccak256_batch, keccak256_fixed
+from khipu_tpu_torch.trie import bulk, deferred, fixpoint_cuda, fused
+from khipu_tpu_torch.trie.mpt import MerklePatriciaTrie
+from khipu_tpu_torch.state import load_reference_nodes
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import khipu_tpu_torch
+names = ["khipu_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(khipu_tpu_torch.__path__, "khipu_tpu_torch.")
+]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "khipu_tpu" or m.startswith("khipu_tpu."))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    count, bad = out.stdout.strip().split(" ", 1)
+    assert int(count) >= 20
+    assert bad == "[]"
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _session():
+    d = deferred.DeferredMPT(load_reference_nodes({}))
+    for i in range(4):
+        d = d.put(bytes([i]) * 32, b"v" * 40)
+    return d
+
+
+@pytest.mark.parametrize("call", [
+    lambda: keccak256_batch([b"x"]),
+    lambda: keccak256_batch([b"x"], device="cuda"),
+    lambda: keccak256_fixed(np.zeros((2, 20), np.uint8)),
+    lambda: bulk.device_hasher([b"x"]),
+    lambda: bulk.bulk_build([(b"k" * 32, b"v" * 40)], fused=True),
+    lambda: bulk.bulk_build([(b"k" * 32, b"v" * 40)]),
+    lambda: deferred.finalize(_session(), fused=True),
+    lambda: deferred.finalize(_session()),
+    lambda: _session().commit(),
+    lambda: deferred.batch_commit(
+        MerklePatriciaTrie(load_reference_nodes({})), [(b"k" * 32, b"v" * 40)]
+    ),
+    lambda: fused.fused_submit({b"p" * 32: b"e" * 40}, {}, b"p"),
+], ids=["batch", "batch-cuda", "fixed", "device_hasher", "bulk_fused",
+        "bulk_levels", "finalize_fused", "finalize_levels", "commit",
+        "batch_commit", "fused_submit"])
+def test_entry_points_raise_without_card(no_card, call):
+    with pytest.raises(RuntimeError, match="is_available"):
+        call()
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    rows = torch.zeros((2, 136), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        keccak_cuda.absorb_padded(rows)
+    i32 = torch.zeros(1, dtype=torch.int32)
+    d = torch.zeros((1, 32), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        fixpoint_cuda.substitute(rows, i32, i32, i32, d, d, 1)
+
+
+def test_build_sees_both_kernel_sources():
+    assert sorted(p.name for p in build.sources()) == [
+        "fixpoint.cu", "keccak.cu"
+    ]
+    assert build.BUILD_DIR.name == "_build"
