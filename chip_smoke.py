@@ -3,14 +3,18 @@
 
     python3 chip_smoke.py [--seed N]
 
-Builds kernels K1 (Keccak sponge) and K2 (fixpoint substitution) from
-the repository's CUDA sources, holds each against its plain PyTorch
-version on the card, then drives the state-root pipeline through the
-entry points a user calls:
+Builds kernels K1 (Keccak sponge), K1f (the sponge with the pad fused),
+K2 (fixpoint substitution), K3 (mirror hash) and K4 (mirror verify)
+from the repository's CUDA sources, holds each against its plain
+PyTorch version on the card, then drives the port through the entry
+points a user calls:
 
-  1. build K1 + K2 with nvcc
+  1. build every kernel with nvcc, one process per source
   2. K1 vs the plain sponge: rate-class edges, 1,048,576 x 576 B, and a
      mixed-length ``keccak256_batch`` in input order
+  2b. K1f (``keccak256_device_fixed``) vs K1 over the same 1,048,576 x
+     576 B rows padded on the card, and vs the plain version (and the
+     scalar oracle on sampled rows) at the pad's edge lengths
   3. K1 + K2 fixpoint vs the plain fixpoint on the card: ``fused_submit``
      with a resolved-input (ext) tile and mirror admit rows
   4. mainnet genesis (8,893 accounts): ``bulk_build(fused=True)`` root
@@ -20,10 +24,26 @@ entry points a user calls:
   6. a window of 16 blocks x 400 account writes in one ``DeferredMPT``
      session, ``finalize(fused=True)``: every per-block root and the
      persisted node set equal the level loop with the plain hasher
-  7. launch counts of phases 4-6, kernel timings, the result line
+  7. launch counts of phases 4-6 (K1, K1f, K2), K2 timed
+  8. mirror_verify (BASELINE config #5 on one card): 10,485,760 x 576 B
+     nodes generated on the card, claims by K1f, ``admit_packed(...,
+     exact=True)``, ``verify()`` == 0 and exactly 1 for each negative
+     control; K3 and K4 vs their plain versions, timed
+  9. fast_sync: ``StateSyncer`` downloads the 100,000-account state with
+     1,000 contracts (storage trie + 2,048 B code each) into fresh
+     ``Storages`` with a ``DeviceNodeMirror``, one corrupt delivery
+     retried; stores byte-equal, mirror verify 0, nothing unreachable
+ 10. window_admit: phase 6's window through ``fused_submit(admit_live=)``,
+     its admit tiles landed with ``admit_device`` and ``rekey``ed;
+     ``verify()`` == 0 and ``spill_rows`` equal the persisted nodes
 
-Every comparison is exact (bytes). Each phase prints one JSON line; the
-first line is the card's name and power limit from nvidia-smi, the line
+After phases 9 and 10, K3 and K4 are held against their plain versions
+on every class of that phase's mirror, whole (the padded generic
+classes the paths gave them), with the negative controls in each class.
+
+Launch counts are zeroed just before each driven path (4-6, 8, 9, 10)
+and read just after it. Every comparison is exact (bytes). Each phase
+prints one JSON line; the first line is the card's name and power limit from nvidia-smi, the line
 before the last lists the kernels, and the last line is the result. Any
 failure exits non-zero before the result line; without a card the
 script exits 2 and prints no result.
@@ -53,6 +73,7 @@ H100_INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # 50), rho 48 funnel shifts, chi 50 LOP3s, iota 2 -> 180 per round, 24
 # rounds; absorbing a 136-byte block adds 34 XORs.
 K1_OPS_PER_BLOCK = 180 * 24 + 34
+K1F_EDGES = (0, 1, 20, 32, 135, 136, 137, 271, 272)
 
 
 def emit(obj) -> None:
@@ -88,11 +109,125 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def k1_bound_ms(n_rows: int, nblocks: int) -> tuple:
+def cuda_ms_median(torch, fn, reps: int, warmup: bool = True) -> float:
+    """Median milliseconds of ``reps`` single runs of ``fn``, each timed
+    with its own pair of CUDA events; after one warm-up unless told
+    otherwise (the plain versions at full size, where a second run would
+    double the cost)."""
+    if warmup:
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def sponge_bound_ms(n_rows: int, nblocks: int, bytes_moved: int) -> tuple:
+    """The least time for ``n_rows`` sponges of ``nblocks`` rate blocks
+    that read and write ``bytes_moved`` bytes in all."""
     ops_s = n_rows * nblocks * K1_OPS_PER_BLOCK / H100_INT32_OPS_PER_S
-    bytes_s = n_rows * (nblocks * 136 + 32) / H100_BYTES_PER_S
+    bytes_s = bytes_moved / H100_BYTES_PER_S
     return (max(ops_s, bytes_s) * 1e3,
             "operations" if ops_s >= bytes_s else "bytes")
+
+
+def k1_bound_ms(n_rows: int, nblocks: int) -> tuple:
+    return sponge_bound_ms(n_rows, nblocks, n_rows * (nblocks * 136 + 32))
+
+
+def hold_class(torch, device_mirror, mirror_cuda, cm, ncols, rng) -> tuple:
+    """K3 and K4 against their plain versions on the first ``ncols``
+    columns of one mirror class (the whole class where ``ncols`` is
+    None), at the class's own shape: padded rows of a generic class, or
+    unpadded rows with the pad fused for an exact class. K3's digests
+    must equal the plain version's and the class's claims; K4 must count
+    0 on the claims and exactly 5 with one word of 5 claims bent, as the
+    plain version does. Returns the worst absolute difference of each."""
+    n = cm.capacity if ncols is None else min(ncols, cm.capacity)
+    label = f"class (nblocks {cm.nblocks}, exact_len {cm.exact_len})"
+    sub, csub = cm.resident[:, :n], cm.claimed[:, :n]
+    got = torch.empty((8, n), dtype=torch.int32, device=sub.device)
+    mirror_cuda.hash_planes(sub, cm.nblocks, cm.nwords, got)
+    plain = device_mirror.hash_planes_plain(sub, cm.nblocks, cm.exact_len)
+    torch.cuda.synchronize()
+    k3_err = int((got.long() - plain.long()).abs().max())
+    check(k3_err == 0 and torch.equal(got, plain), f"K3 != plain, {label}")
+    check(torch.equal(got, csub), f"K3 digests != the claims, {label}")
+    bent = csub.clone()
+    bent[rng.integers(0, 8, 5), rng.choice(n, 5, replace=False)] ^= 1
+    k4 = [int(mirror_cuda.verify_planes(sub, c, cm.nblocks, cm.nwords).item())
+          for c in (csub, bent)]
+    p4 = [device_mirror.verify_planes_plain(sub, c, cm.nblocks, cm.exact_len)
+          for c in (csub, bent)]
+    check(k4 == p4 == [0, 5], f"K4 {k4} != plain {p4}, {label}")
+    return k3_err, max(abs(a - b) for a, b in zip(k4, p4))
+
+
+def negative_controls(mirror, cm, col: int) -> list:
+    """``mirror.verify()`` with one claim word of column ``col`` of class
+    ``cm`` raised by 1, with one resident word of that column flipped,
+    and with both restored: must give [1, 1, 0]."""
+    cm.claimed[2, col] += 1
+    raised = mirror.verify()
+    cm.claimed[2, col] -= 1
+    cm.resident[17, col] ^= 0x10
+    flipped = mirror.verify()
+    cm.resident[17, col] ^= 0x10
+    got = [raised, flipped, mirror.verify()]
+    check(got == [1, 1, 0], f"negative controls gave {got} in class "
+          f"(nblocks {cm.nblocks}, exact_len {cm.exact_len})")
+    return got
+
+
+def hold_mirror(torch, device_mirror, mirror_cuda, mirror, rng) -> dict:
+    """``hold_class`` on every class of ``mirror``, whole, and the
+    negative controls on a resident row of each. Returns the worst
+    errors and each class's controls."""
+    errs, controls = [(0, 0)], {}
+    for (nb, exact), cm in sorted(mirror._classes.items(),
+                                  key=lambda kv: (kv[0][0], kv[0][1] or 0)):
+        errs.append(hold_class(torch, device_mirror, mirror_cuda, cm, None,
+                               rng))
+        col = min(cm.rows.values()) if cm.rows else 0
+        controls[f"{nb}/{exact}"] = negative_controls(mirror, cm, col)
+    return {"k3_err": max(e[0] for e in errs),
+            "k4_err": max(e[1] for e in errs), "controls": controls}
+
+
+class Launches:
+    """The kernels' launch counters: zeroed just before a driven path,
+    read just after it."""
+
+    def __init__(self, keccak_cuda, fixpoint_cuda, mirror_cuda):
+        self.fields = (
+            ("k1", keccak_cuda, "LAUNCHES"),
+            ("k1f", keccak_cuda, "FIXED_LAUNCHES"),
+            ("k2", fixpoint_cuda, "LAUNCHES"),
+            ("k3", mirror_cuda, "HASH_LAUNCHES"),
+            ("k4", mirror_cuda, "VERIFY_LAUNCHES"),
+        )
+        self.total = {name: 0 for name, _, _ in self.fields}
+
+    def zero(self) -> None:
+        for _, mod, attr in self.fields:
+            setattr(mod, attr, 0)
+
+    def read(self, path: str, required) -> dict:
+        """This path's counts; each kernel in ``required`` must have
+        launched. The counts add to the main paths' totals."""
+        got = {name: getattr(mod, attr) for name, mod, attr in self.fields}
+        for name in required:
+            check(got[name] > 0, f"{name} was not launched on the {path} path")
+        for name, n in got.items():
+            self.total[name] += n
+        return got
 
 
 def main() -> int:
@@ -103,6 +238,8 @@ def main() -> int:
     ap.add_argument("--blocks", type=int, default=16)
     ap.add_argument("--writes", type=int, default=400)
     ap.add_argument("--new-accounts", type=int, default=20)
+    ap.add_argument("--edge-rows", type=int, default=4097)
+    ap.add_argument("--mirror-rows", type=int, default=10_485_760)
     args = ap.parse_args()
 
     import torch
@@ -115,17 +252,26 @@ def main() -> int:
 
     from khipu_tpu_torch import observability, workloads
     from khipu_tpu_torch.base.keccak import keccak256_py
+    from khipu_tpu_torch.base.rlp import rlp_encode_int
     from khipu_tpu_torch.domain.account import Account, address_key
     from khipu_tpu_torch.ops import build, keccak_cuda, keccak_torch
-    from khipu_tpu_torch.ops.keccak import keccak256_batch
+    from khipu_tpu_torch.ops.keccak import keccak256_batch, keccak256_device_fixed
     from khipu_tpu_torch.state import load_reference_nodes
+    from khipu_tpu_torch.storage import device_mirror, mirror_cuda
+    from khipu_tpu_torch.storage.compactor import verify_reachable
+    from khipu_tpu_torch.storage.datasource import MemoryKeyValueDataSource
+    from khipu_tpu_torch.storage.device_mirror import DeviceNodeMirror
+    from khipu_tpu_torch.storage.storages import Storages
+    from khipu_tpu_torch.sync.fast_sync import FastSyncStateStorage, StateSyncer
     from khipu_tpu_torch.trie import bulk, deferred, fixpoint_cuda, fused
+    from khipu_tpu_torch.trie.mpt import MerklePatriciaTrie
 
     print(card_line(), flush=True)
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     plain_hasher = lambda msgs: keccak_torch.keccak256_batch_plain(msgs, dev)  # noqa: E731
+    launches = Launches(keccak_cuda, fixpoint_cuda, mirror_cuda)
 
     def plain_hash_rows(enc, out):
         out.copy_(keccak_torch.absorb_padded(enc))
@@ -190,6 +336,39 @@ def main() -> int:
           "hashes_per_s": n_msg / (k1_ms / 1e3), "max_abs_err": k1_err,
           "mixed_batch": len(mixed)})
 
+    # 2b. K1f against K1 and the plain version -----------------------------
+    data = torch.randint(0, 256, (n_msg, length), dtype=torch.uint8,
+                         device=dev, generator=gen)
+    k1f_out = keccak256_device_fixed(data, device=dev)
+    k1_out = keccak_cuda.absorb_padded(keccak_torch.pad_fixed(data))
+    k1f_plain = keccak_torch.absorb_fixed(data)
+    torch.cuda.synchronize()
+    check(torch.equal(k1f_out, k1_out), "K1f != K1 over the padded rows")
+    k1f_err = int((k1f_out.int() - k1f_plain.int()).abs().max())
+    check(k1f_err == 0, "K1f != plain at 1M x 576")
+    words_out = keccak256_device_fixed(data.view(torch.int32), device=dev)
+    check(torch.equal(words_out, k1f_out), "K1f words input != bytes input")
+    k1f_ms = cuda_ms(torch, lambda: keccak_cuda.absorb_fixed(data, k1f_out), 10)
+    k1f_plain_ms = cuda_ms(torch, lambda: keccak_torch.absorb_fixed(data), 2)
+    k1f_bound, k1f_bound_by = sponge_bound_ms(n_msg, nblocks,
+                                              n_msg * (length + 32))
+    del data, k1f_out, k1_out, k1f_plain, words_out
+    for edge in K1F_EDGES:
+        rows = torch.randint(0, 256, (args.edge_rows, edge), dtype=torch.uint8,
+                             device=dev, generator=gen)
+        got = keccak_cuda.absorb_fixed(rows)
+        check(torch.equal(got, keccak_torch.absorb_fixed(rows)),
+              f"K1f != plain at L={edge}")
+        sample = rng.choice(args.edge_rows, size=min(64, args.edge_rows),
+                            replace=False)
+        got_h, rows_h = got.cpu().numpy(), rows.cpu().numpy()
+        check(all(got_h[i].tobytes() == keccak256_py(rows_h[i].tobytes())
+                  for i in sample), f"K1f != scalar oracle at L={edge}")
+    emit({"phase": "k1f", "messages": n_msg, "bytes": length,
+          "k1f_ms": k1f_ms, "plain_ms": k1f_plain_ms, "bound_ms": k1f_bound,
+          "hashes_per_s": n_msg / (k1f_ms / 1e3), "max_abs_err": k1f_err,
+          "edge_lengths": list(K1F_EDGES), "edge_rows": args.edge_rows})
+
     # 3. K1 + K2 fixpoint against the plain fixpoint on the card ----------
     session = deferred.DeferredMPT(load_reference_nodes({}))
     for i in range(3000):
@@ -241,8 +420,7 @@ def main() -> int:
           "admit": len(live), "rounds": rounds, "classes": len(classes)})
 
     # 4-6: the main path, with the launch counts zeroed just before -------
-    keccak_cuda.LAUNCHES = 0
-    fixpoint_cuda.LAUNCHES = 0
+    launches.zero()
     fused.FUSED_GAUGES["unsupported_fallbacks"] = 0
     main_t0 = time.perf_counter()
 
@@ -292,16 +470,14 @@ def main() -> int:
             refs[i].append(s.force_hashed_root())
             sessions[i] = s
     apply_s = time.perf_counter() - t0
-    observability.SPANS.clear()
+    observability.SPAN_TOTALS.clear()
     observability.enable()
     t0 = time.perf_counter()
     w_trie, w_map = deferred.finalize(sessions[0], return_mapping=True,
                                       fused=True, device=dev)
     finalize_s = time.perf_counter() - t0
     observability.enable(False)
-    spans = {}
-    for name, sec, _ in observability.SPANS:
-        spans[name] = spans.get(name, 0.0) + sec
+    spans = {k: v[1] for k, v in observability.SPAN_TOTALS.items()}
     w_nodes, w_rounds = (fused.FUSED_GAUGES["last_nodes"],
                          fused.FUSED_GAUGES["last_rounds"])
     l_trie, l_map = deferred.finalize(sessions[1], plain_hasher,
@@ -320,7 +496,8 @@ def main() -> int:
           "finalize_spans_s": spans})
 
     torch.cuda.synchronize()
-    k1_launches, k2_launches = keccak_cuda.LAUNCHES, fixpoint_cuda.LAUNCHES
+    path = launches.read("state_root", ("k1", "k1f", "k2"))
+    k1_launches, k2_launches = path["k1"], path["k2"]
     fallbacks = fused.FUSED_GAUGES["unsupported_fallbacks"]
     main_s = time.perf_counter() - main_t0
 
@@ -361,22 +538,237 @@ def main() -> int:
     check(fallbacks == 0, "a fused finalize fell back to the level loop")
     emit({"phase": "main_path", "seconds": main_s,
           "k1_launches": k1_launches, "k2_launches": k2_launches,
+          "k1f_launches": path["k1f"],
           "unsupported_fallbacks": fallbacks, "k2_triples": n_subs,
           "k2_classes": len(classes)})
 
+    # 8. mirror_verify: BASELINE config #5 on one card ---------------------
+    aux = np.random.default_rng(args.seed + 1)
+    n_rows, node_len = args.mirror_rows, 576
+    m_nblocks = node_len // 136 + 1
+    rows = torch.randint(0, 256, (n_rows, node_len), dtype=torch.uint8,
+                         device=dev, generator=gen)
+    observability.SPAN_TOTALS.clear()
+    observability.enable()
+    launches.zero()
+    t0 = time.perf_counter()
+    claims = keccak256_device_fixed(rows, device=dev)
+    blob = claims.cpu().numpy().tobytes()
+    hashes = [blob[i:i + 32] for i in range(0, len(blob), 32)]
+    claims_s = time.perf_counter() - t0
+    mirror = DeviceNodeMirror(capacity_rows_per_class=n_rows, device=dev)
+    mirror.admit_packed(hashes, rows, exact=True)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    observability.enable(False)
+    bookkeep_s = observability.SPAN_TOTALS["mirror.bookkeep"][1]
+    bad = mirror.verify()
+    path = launches.read("mirror_verify", ("k1f", "k3", "k4"))
+    check(bad == 0, f"mirror verify found {bad} mismatches on clean rows")
+    check(mirror.resident_count == n_rows, "resident count != rows admitted")
+    row0 = rows[0].cpu().numpy().tobytes()
+    sample = aux.choice(n_rows, size=min(1024, n_rows), replace=False)
+    sampled = rows[torch.from_numpy(sample).to(dev)].cpu().numpy()
+    check(all(hashes[i] == keccak256_py(sampled[j].tobytes())
+              for j, i in enumerate(sample)),
+          "a K1f claim != scalar oracle")
+    check(mirror.get(hashes[0]) == row0, "mirror.get != row 0")
+    del rows, claims, blob
+    cm = mirror._classes[(m_nblocks, node_len)]
+    controls = negative_controls(mirror, cm, n_rows // 3)
+    ncmp = min(1 << 20, n_rows)
+    k3_err, k4_err = hold_class(torch, device_mirror, mirror_cuda, cm, ncmp,
+                                aux)
+    nwords_in = cm.nwords
+
+    full, cfull = cm.resident, cm.claimed
+    k3_out = torch.empty((8, n_rows), dtype=torch.int32, device=dev)
+    k3_ms = cuda_ms_median(torch, lambda: mirror_cuda.hash_planes(
+        full, m_nblocks, nwords_in, k3_out), 5)
+    check(torch.equal(k3_out, cfull), "K3 at full size != the claims")
+    del k3_out
+    k4_ms = cuda_ms_median(torch, lambda: mirror_cuda.verify_planes(
+        full, cfull, m_nblocks, nwords_in), 5)
+    k3_plain_ms = cuda_ms_median(torch, lambda: device_mirror.hash_planes_plain(
+        full, m_nblocks, node_len), 1, warmup=False)
+    k4_plain_ms = cuda_ms_median(torch, lambda: device_mirror.verify_planes_plain(
+        full, cfull, m_nblocks, node_len), 1, warmup=False)
+    resident_bytes = full.numel() * 4
+    claim_bytes = cfull.numel() * 4
+    k3_bound, k3_bound_by = sponge_bound_ms(n_rows, m_nblocks,
+                                            resident_bytes + claim_bytes)
+    k4_bound, k4_bound_by = sponge_bound_ms(n_rows, m_nblocks,
+                                            resident_bytes + claim_bytes + 4)
+    emit({"phase": "mirror_verify", "rows": n_rows, "bytes": node_len,
+          "resident_gb": resident_bytes / 1e9, "claimed_gb": claim_bytes / 1e9,
+          "claims_seconds": claims_s, "ingest_seconds": ingest_s,
+          "bookkeep_seconds": bookkeep_s,
+          "bookkeep_us_per_row": bookkeep_s / n_rows * 1e6,
+          "negative_controls": controls,
+          "k4_ms_median5": k4_ms, "k4_bound_ms": k4_bound,
+          "k4_bound_by": k4_bound_by,
+          "k4_ops_ms": n_rows * m_nblocks * K1_OPS_PER_BLOCK
+          / H100_INT32_OPS_PER_S * 1e3,
+          "k4_bytes_ms": (resident_bytes + claim_bytes) / H100_BYTES_PER_S * 1e3,
+          "k3_ms_median5": k3_ms, "k3_plain_ms": k3_plain_ms,
+          "k4_plain_ms": k4_plain_ms, "compare_cols": ncmp,
+          "launches": path})
+    del mirror, cm, full, cfull
+    torch.cuda.empty_cache()
+
+    # 9. fast_sync: the 100k-account state with contracts ------------------
+    t0 = time.perf_counter()
+    src_root, stores = workloads.contract_snapshot(pairs, aux, device=dev)
+    src_nodes, st_nodes, code_store = stores
+    source_s = time.perf_counter() - t0
+    contract = Account.decode(MerklePatriciaTrie(
+        load_reference_nodes(src_nodes), root_hash=src_root).get(pairs[0][0]))
+    slot1 = MerklePatriciaTrie(load_reference_nodes(st_nodes),
+                               root_hash=contract.storage_root).get(
+        keccak256_py((1).to_bytes(32, "big")))
+    check(slot1 == rlp_encode_int(2) and contract.code_hash in code_store,
+          "contract account, slot 1 or code blob not in the snapshot")
+    snapshot = sum(len(s) for s in stores)
+    peer = workloads.snapshot_fetch(stores)
+    fetched = {"calls": 0, "victim": None, "deliveries": 0}
+
+    def fetch(want):
+        fetched["calls"] += 1
+        out = peer(want)
+        if fetched["victim"] is None and fetched["calls"] == 5:
+            victim = want[len(want) // 2]
+            bent = bytearray(out[victim])
+            bent[len(bent) // 2] ^= 0x01
+            out[victim] = bytes(bent)
+            fetched["victim"] = victim
+        if fetched["victim"] in out:
+            fetched["deliveries"] += 1
+        return out
+
+    target = Storages()
+    capacity = -(-snapshot // device_mirror.TILE) * device_mirror.TILE
+    sync_mirror = DeviceNodeMirror(capacity_rows_per_class=capacity, device=dev)
+    syncer = StateSyncer(target, FastSyncStateStorage(MemoryKeyValueDataSource()),
+                         fetch, mirror=sync_mirror, device=dev)
+    observability.SPAN_TOTALS.clear()
+    observability.enable()
+    launches.zero()
+    t0 = time.perf_counter()
+    state = syncer.start(src_root)
+    torch.cuda.synchronize()
+    sync_s = time.perf_counter() - t0
+    path = launches.read("fast_sync", ("k1", "k3", "k4"))
+    observability.enable(False)
+    sync_spans = {k: v[1] for k, v in observability.SPAN_TOTALS.items()}
+    check(fetched["deliveries"] == 2, "the corrupt node was not retried once")
+    for got, want in ((target.account_node_storage, src_nodes),
+                      (target.storage_node_storage, st_nodes),
+                      (target.evmcode_storage, code_store)):
+        check(got.source._map == want, "a synced store != its source")
+    check(state.downloaded_nodes == snapshot,
+          f"downloaded {state.downloaded_nodes} != snapshot {snapshot}")
+    check(sync_mirror.verify() == 0, "mirror verify after sync != 0")
+    check(sync_mirror.resident_count == len(src_nodes) + len(st_nodes),
+          "mirror does not hold every state and storage node")
+    check(sync_mirror.get(src_root) == target.account_node_storage.get(src_root),
+          "mirror.get(root) != the store's copy")
+    check(target.app_state.fast_sync_done, "fast sync not marked done")
+    t0 = time.perf_counter()
+    walk = verify_reachable(target.account_node_storage,
+                            target.storage_node_storage,
+                            target.evmcode_storage, src_root)
+    walk_s = time.perf_counter() - t0
+    check(walk.missing == 0 and walk.total == snapshot,
+          f"verify_reachable: {walk}")
+    sync_held = hold_mirror(torch, device_mirror, mirror_cuda, sync_mirror,
+                            aux)
+    k3_err = max(k3_err, sync_held["k3_err"])
+    k4_err = max(k4_err, sync_held["k4_err"])
+    emit({"phase": "fast_sync", "accounts": n_acc,
+          "contracts": len(code_store),
+          "nodes": snapshot, "state_nodes": len(src_nodes),
+          "storage_nodes": len(st_nodes), "code_blobs": len(code_store),
+          "root": src_root.hex(), "seconds": sync_s,
+          "nodes_per_s": snapshot / sync_s, "source_seconds": source_s,
+          "fetch_calls": fetched["calls"],
+          "mirror_classes": sorted(nb for nb, _ in sync_mirror._classes),
+          "verify_span_s": sync_spans.get("fastsync.verify", 0.0),
+          "spans_s": sync_spans, "reachable_walk_seconds": walk_s,
+          "held_against_plain": sync_held, "launches": path})
+    del sync_mirror, target, syncer
+
+    # 10. window_admit: the window's admit tiles into a mirror ------------
+    session = sessions[0]
+    w_resolve, w_deps, _ = deferred.resolution_inputs(session)
+    live = {ph for ph, rec in session._logs.items()
+            if deferred._is_placeholder(ph) and rec[0] > 0}
+    launches.zero()
+    t0 = time.perf_counter()
+    job = fused.fused_submit(w_resolve, w_deps, deferred._PLACEHOLDER_PREFIX,
+                             device=dev, admit_live=live)
+    mapping = job.collect()
+    tiles = job.admit_tiles
+    capacity = max(enc.shape[0] for _, _, enc, _, _ in tiles)
+    w_mirror = DeviceNodeMirror(capacity_rows_per_class=capacity, device=dev)
+    for nb, keys, enc_g, claim_g, lens in tiles:
+        w_mirror.admit_device(nb, keys, enc_g, claim_g, lens)
+    moved = w_mirror.rekey(mapping)
+    bad = w_mirror.verify()
+    torch.cuda.synchronize()
+    admit_s = time.perf_counter() - t0
+    path = launches.read("window_admit", ("k1", "k2", "k4"))
+    check(mapping == w_map, "admit_live fixpoint mapping != finalize's")
+    check(bad == 0, f"window mirror verify found {bad} mismatches")
+    check(moved == len(live), f"rekey moved {moved} of {len(live)} rows")
+    real = {mapping[ph] for ph in live}
+    spilled = w_mirror.spill_rows(list(real))
+    check(set(spilled) == real, "spill_rows missed a rekeyed row")
+    check(all(upserts.get(k, v) == v for k, v in spilled.items()),
+          "spill_rows != the persisted node encodings")
+    w_held = hold_mirror(torch, device_mirror, mirror_cuda, w_mirror, aux)
+    k3_err = max(k3_err, w_held["k3_err"])
+    k4_err = max(k4_err, w_held["k4_err"])
+    emit({"phase": "window_admit", "live": len(live), "nodes": len(w_resolve),
+          "tiles": sum(enc.shape[0] for _, _, enc, _, _ in tiles)
+          // device_mirror.TILE, "classes": [t[0] for t in tiles],
+          "rekeyed": moved, "spilled": len(spilled),
+          "spilled_persisted": len(real & set(upserts)),
+          "persisted": len(upserts), "seconds": admit_s,
+          "held_against_plain": w_held, "launches": path})
+    del w_mirror, job
+
+    tot = launches.total
     emit({"kernels": [
         {"name": "keccak_sponge_k1", "route": "cuda",
          "source": "khipu_tpu_torch/ops/csrc/keccak.cu",
          "replaces": "khipu_tpu/ops/keccak_pallas.py:41",
-         "launches": k1_launches, "max_abs_err": k1_err,
+         "launches": tot["k1"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_bound_by, "library_ms": None},
+        {"name": "keccak_fixed_k1f", "route": "cuda",
+         "source": "khipu_tpu_torch/ops/csrc/keccak.cu",
+         "replaces": "khipu_tpu/ops/keccak_pallas.py:181",
+         "launches": tot["k1f"], "max_abs_err": k1f_err,
+         "ms": k1f_ms, "plain_ms": k1f_plain_ms, "bound_ms": k1f_bound,
+         "bound_by": k1f_bound_by, "library_ms": None},
         {"name": "fixpoint_substitute_k2", "route": "cuda",
          "source": "khipu_tpu_torch/trie/csrc/fixpoint.cu",
          "replaces": "khipu_tpu/trie/fused.py:193",
-         "launches": k2_launches, "max_abs_err": k2_err,
+         "launches": tot["k2"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": "bytes", "library_ms": None},
+        {"name": "mirror_hash_k3", "route": "cuda",
+         "source": "khipu_tpu_torch/storage/csrc/mirror.cu",
+         "replaces": "khipu_tpu/storage/device_mirror.py:80",
+         "launches": tot["k3"], "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
+         "bound_by": k3_bound_by, "library_ms": None},
+        {"name": "mirror_verify_k4", "route": "cuda",
+         "source": "khipu_tpu_torch/storage/csrc/mirror.cu",
+         "replaces": "khipu_tpu/storage/device_mirror.py:167",
+         "launches": tot["k4"], "max_abs_err": k4_err,
+         "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
+         "bound_by": k4_bound_by, "library_ms": None},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,9 @@ The port keeps the span and gauge call sites of the modules it ports,
 but not the reference's full plane (tracing export, telemetry, the
 movement ledger). This module is what those call sites need:
 
-* ``span(name, **attrs)`` — a timing context manager; a no-op until
-  ``enable()`` is called, then it appends ``(name, seconds, attrs)`` to
-  ``SPANS``.
+* ``span(name)`` — a timing context manager; a no-op until
+  ``enable()`` is called, then it adds to ``SPAN_TOTALS[name]``
+  (``[count, seconds]`` over every span since the last clear).
 * ``REGISTRY.gauge_group(name, defaults)`` — a get-or-create dict of
   counters. The port's registry is its own object, so nothing here can
   reset or share a gauge of the JAX package.
@@ -23,7 +23,7 @@ from contextlib import contextmanager
 from typing import Deque, Dict, Optional, Tuple
 
 _ENABLED = [False]
-SPANS: Deque[Tuple[str, float, dict]] = deque(maxlen=4096)
+SPAN_TOTALS: Dict[str, list] = {}
 
 
 def enable(on: bool = True) -> None:
@@ -31,7 +31,7 @@ def enable(on: bool = True) -> None:
 
 
 @contextmanager
-def span(name: str, **attrs):
+def span(name: str):
     if not _ENABLED[0]:
         yield
         return
@@ -39,7 +39,9 @@ def span(name: str, **attrs):
     try:
         yield
     finally:
-        SPANS.append((name, time.perf_counter() - t0, attrs))
+        total = SPAN_TOTALS.setdefault(name, [0, 0.0])
+        total[0] += 1
+        total[1] += time.perf_counter() - t0
 
 
 class _Registry:

@@ -3,8 +3,9 @@
 Every ``csrc/*.cu`` of the package is compiled by ``nvcc`` for sm_90a,
 one process per source, all started together, then linked into one
 shared library with a plain C interface. The library goes into
-``khipu_tpu_torch/_build/`` under a name keyed by a hash of the sources
-and flags, so a second process reuses it. Nothing is downloaded; only
+``khipu_tpu_torch/_build/`` under a name keyed by a hash of the flags,
+the sources and the headers they share (``csrc/*.cuh``), so a second
+process reuses it and an edit to a header rebuilds it. Nothing is downloaded; only
 the package's own sources are compiled. Importing this module runs
 nothing: ``load()`` builds on the first kernel launch.
 """
@@ -40,6 +41,10 @@ def sources() -> List[Path]:
     return sorted(PKG.glob("*/csrc/*.cu"))
 
 
+def headers() -> List[Path]:
+    return sorted(PKG.glob("*/csrc/*.cuh"))
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -52,9 +57,10 @@ def _nvcc() -> str:
 
 
 def _key(srcs: List[Path]) -> str:
+    """Hash of the flags, ``srcs`` and every shared header."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
-        h.update(s.name.encode())
+    for s in [*srcs, *headers()]:
+        h.update(str(s.relative_to(PKG)).encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]
 
@@ -95,8 +101,23 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.khipu_keccak256_rows.argtypes = [p, p, ll, i, i, p]
     lib.khipu_keccak256_rows.restype = i
+    lib.khipu_keccak256_fixed.argtypes = [p, p, ll, i, i, i, p]
+    lib.khipu_keccak256_fixed.restype = i
+    lib.khipu_mirror_hash.argtypes = [p, ll, ll, i, i, p, ll, i, p]
+    lib.khipu_mirror_hash.restype = i
+    lib.khipu_mirror_verify.argtypes = [p, ll, ll, i, i, p, ll, p, i, p]
+    lib.khipu_mirror_verify.restype = i
     lib.khipu_fixpoint_substitute.argtypes = [p, ll, p, p, p, ll, p, p, ll, i, p]
     lib.khipu_fixpoint_substitute.restype = i
+
+
+def launch_args(t) -> tuple:
+    """(device index, raw stream handle) for a launch on ``t``'s card and
+    PyTorch's current stream there."""
+    import torch
+
+    dev = t.device.index if t.device.index is not None else torch.cuda.current_device()
+    return dev, torch.cuda.current_stream(t.device).cuda_stream
 
 
 def load() -> ctypes.CDLL:

@@ -1,118 +1,43 @@
-// Keccak-256 sponge for Hopper (sm_90a): kernel K1 of khipu_tpu_torch.
+// Keccak-256 sponges for Hopper (sm_90a): kernels K1 and K1f of
+// khipu_tpu_torch. The permutation is shared with the mirror's kernels
+// through keccak_f1600.cuh.
 //
-// Replaces ops/keccak_pallas.py::_make_kernel of the JAX package, the
+// K1 replaces ops/keccak_pallas.py::_make_kernel of the JAX package (the
 // Pallas kernel that keeps 50 u32 half-lanes of 1024 messages in VMEM
-// tiles. That (lo, hi) u32 split exists only because the TPU vector unit
-// has no 64-bit integers. Here one thread owns one message and keeps its
-// 25 u64 lanes in registers; rotations by constants become funnel shifts
-// and chi's a ^ (~b & c) a single LOP3 per 32-bit half.
+// tiles; that (lo, hi) u32 split exists only because the TPU vector unit
+// has no 64-bit integers) for padded rows: _build_from_bytes,
+// _build_from_words and keccak256_batch_pallas.
+//   Input: row-major, multi-rate padded u8[n, nblocks * 136], read as
+//   little-endian u64 words (the wrapper checks contiguity and 8-byte
+//   alignment). Output: u8[n, 32], the first four lanes of the state.
 //
-// Input: row-major, multi-rate padded u8[n, nblocks * 136], read as
-// little-endian u64 words (the wrapper checks contiguity and 8-byte
-// alignment). Output: u8[n, 32], the first four lanes of the state.
-// n is any count: the kernel masks the ragged edge.
+// K1f replaces the same kernel with `nwords_in` set, behind
+// _build_device_fixed and _build_device_fixed_words: unpadded rows of one
+// length L, the multi-rate pad XORed in registers, so no padded copy is
+// ever built. Row strides of 20 B (address keys) and 32 B (slot keys) are
+// not 8-byte aligned, so K1f loads u32 words where L % 4 == 0 (the
+// wrapper checks 4-byte alignment) and bytes otherwise. The pad puts 0x01
+// at byte L and 0x80 at the last byte of the last rate block: one byte
+// 0x81 when L % 136 == 135, and a block of padding alone when
+// L % 136 == 0.
+//
+// Both: one thread per row, any row count, the ragged edge masked.
 //
 // Bound: integer ALU. One permutation is 24 rounds of about 180 32-bit
-// operations (theta about 80, rho 48 funnel shifts, chi 50 LOP3s, iota
-// 2) per message per 136-byte block; a 136-byte block is read once, so
+// operations (theta about 80, rho 48 funnel shifts, chi 50 LOP3s, iota 2)
+// per message per 136-byte block; a 136-byte block is read once, so
 // operations per byte read are far above the card's int32-op to byte
-// ratio. Each thread's rows are read with strided 8-byte loads, which do
-// not coalesce; staging rows through shared memory (or a word-major
-// layout) is later work, as is a variant that fuses the pad.
+// ratio. Each thread's rows are read with strided loads, which do not
+// coalesce; the mirror's kernels (word-major layout) do coalesce, and
+// staging rows through shared memory here is later work.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "keccak_f1600.cuh"
 
 namespace {
 
-__constant__ uint64_t kRoundConstants[24] = {
-    0x0000000000000001ull, 0x0000000000008082ull, 0x800000000000808Aull,
-    0x8000000080008000ull, 0x000000000000808Bull, 0x0000000080000001ull,
-    0x8000000080008081ull, 0x8000000000008009ull, 0x000000000000008Aull,
-    0x0000000000000088ull, 0x0000000080008009ull, 0x000000008000000Aull,
-    0x000000008000808Bull, 0x800000000000008Bull, 0x8000000000008089ull,
-    0x8000000000008003ull, 0x8000000000008002ull, 0x8000000000000080ull,
-    0x000000000000800Aull, 0x800000008000000Aull, 0x8000000080008081ull,
-    0x8000000000008080ull, 0x0000000080000001ull, 0x8000000080008008ull,
-};
+using namespace khipu;
 
-constexpr int kLanesPerBlock = 17;  // 136-byte rate / 8
 constexpr int kThreads = 128;
-
-__device__ __forceinline__ uint64_t rotl64(uint64_t x, int n) {
-    return (x << n) | (x >> (64 - n));
-}
-
-__device__ __forceinline__ void keccak_f1600(uint64_t a[25]) {
-#pragma unroll 1
-    for (int r = 0; r < 24; ++r) {
-        // theta
-        const uint64_t c0 = a[0] ^ a[5] ^ a[10] ^ a[15] ^ a[20];
-        const uint64_t c1 = a[1] ^ a[6] ^ a[11] ^ a[16] ^ a[21];
-        const uint64_t c2 = a[2] ^ a[7] ^ a[12] ^ a[17] ^ a[22];
-        const uint64_t c3 = a[3] ^ a[8] ^ a[13] ^ a[18] ^ a[23];
-        const uint64_t c4 = a[4] ^ a[9] ^ a[14] ^ a[19] ^ a[24];
-        const uint64_t d0 = c4 ^ rotl64(c1, 1);
-        const uint64_t d1 = c0 ^ rotl64(c2, 1);
-        const uint64_t d2 = c1 ^ rotl64(c3, 1);
-        const uint64_t d3 = c2 ^ rotl64(c4, 1);
-        const uint64_t d4 = c3 ^ rotl64(c0, 1);
-        // theta applied inside rho + pi: b[y + 5((2x + 3y) % 5)] = rotl(a[x + 5y] ^ d[x], r[x][y])
-        const uint64_t b0 = a[0] ^ d0;
-        const uint64_t b16 = rotl64(a[5] ^ d0, 36);
-        const uint64_t b7 = rotl64(a[10] ^ d0, 3);
-        const uint64_t b23 = rotl64(a[15] ^ d0, 41);
-        const uint64_t b14 = rotl64(a[20] ^ d0, 18);
-        const uint64_t b10 = rotl64(a[1] ^ d1, 1);
-        const uint64_t b1 = rotl64(a[6] ^ d1, 44);
-        const uint64_t b17 = rotl64(a[11] ^ d1, 10);
-        const uint64_t b8 = rotl64(a[16] ^ d1, 45);
-        const uint64_t b24 = rotl64(a[21] ^ d1, 2);
-        const uint64_t b20 = rotl64(a[2] ^ d2, 62);
-        const uint64_t b11 = rotl64(a[7] ^ d2, 6);
-        const uint64_t b2 = rotl64(a[12] ^ d2, 43);
-        const uint64_t b18 = rotl64(a[17] ^ d2, 15);
-        const uint64_t b9 = rotl64(a[22] ^ d2, 61);
-        const uint64_t b5 = rotl64(a[3] ^ d3, 28);
-        const uint64_t b21 = rotl64(a[8] ^ d3, 55);
-        const uint64_t b12 = rotl64(a[13] ^ d3, 25);
-        const uint64_t b3 = rotl64(a[18] ^ d3, 21);
-        const uint64_t b19 = rotl64(a[23] ^ d3, 56);
-        const uint64_t b15 = rotl64(a[4] ^ d4, 27);
-        const uint64_t b6 = rotl64(a[9] ^ d4, 20);
-        const uint64_t b22 = rotl64(a[14] ^ d4, 39);
-        const uint64_t b13 = rotl64(a[19] ^ d4, 8);
-        const uint64_t b4 = rotl64(a[24] ^ d4, 14);
-        // chi: the compiler folds each line into LOP3s
-        a[0] = b0 ^ (~b1 & b2);
-        a[1] = b1 ^ (~b2 & b3);
-        a[2] = b2 ^ (~b3 & b4);
-        a[3] = b3 ^ (~b4 & b0);
-        a[4] = b4 ^ (~b0 & b1);
-        a[5] = b5 ^ (~b6 & b7);
-        a[6] = b6 ^ (~b7 & b8);
-        a[7] = b7 ^ (~b8 & b9);
-        a[8] = b8 ^ (~b9 & b5);
-        a[9] = b9 ^ (~b5 & b6);
-        a[10] = b10 ^ (~b11 & b12);
-        a[11] = b11 ^ (~b12 & b13);
-        a[12] = b12 ^ (~b13 & b14);
-        a[13] = b13 ^ (~b14 & b10);
-        a[14] = b14 ^ (~b10 & b11);
-        a[15] = b15 ^ (~b16 & b17);
-        a[16] = b16 ^ (~b17 & b18);
-        a[17] = b17 ^ (~b18 & b19);
-        a[18] = b18 ^ (~b19 & b15);
-        a[19] = b19 ^ (~b15 & b16);
-        a[20] = b20 ^ (~b21 & b22);
-        a[21] = b21 ^ (~b22 & b23);
-        a[22] = b22 ^ (~b23 & b24);
-        a[23] = b23 ^ (~b24 & b20);
-        a[24] = b24 ^ (~b20 & b21);
-        // iota
-        a[0] ^= kRoundConstants[r];
-    }
-}
 
 __global__ void __launch_bounds__(kThreads)
 keccak256_rows_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
@@ -133,6 +58,61 @@ keccak256_rows_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ ou
     for (int i = 0; i < 4; ++i) o[i] = a[i];
 }
 
+// Lane i of a rate block whose first byte is at p: u32 loads (kWords) or
+// byte loads. `valid` bytes of the block belong to the message; the rest
+// read as zero. Full blocks pass valid = 136.
+template <bool kWords>
+__device__ __forceinline__ uint64_t load_lane(const uint8_t* p, int i, int valid) {
+    uint64_t lane = 0;
+    if (kWords) {
+        const uint32_t* q = reinterpret_cast<const uint32_t*>(p);
+        // valid % 4 == 0 on this path, so a word is all message or none
+        if (8 * i < valid) lane = q[2 * i];
+        if (8 * i + 4 < valid) lane |= (uint64_t)q[2 * i + 1] << 32;
+    } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+            if (8 * i + k < valid) lane |= (uint64_t)p[8 * i + k] << (8 * k);
+        }
+    }
+    return lane;
+}
+
+template <bool kWords>
+__global__ void __launch_bounds__(kThreads)
+keccak256_fixed_kernel(const uint8_t* __restrict__ in, uint64_t* __restrict__ out,
+                       long long n, int length) {
+    const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (row >= n) return;
+    const uint8_t* p = in + row * (long long)length;
+    const int full = length / kRate;     // rate blocks of message bytes only
+    const int tail = length - full * kRate;  // 0..135 message bytes in the last
+    uint64_t a[25];
+#pragma unroll
+    for (int i = 0; i < 25; ++i) a[i] = 0;
+    for (int b = 0; b < full; ++b) {
+#pragma unroll
+        for (int i = 0; i < kLanesPerBlock; ++i)
+            a[i] ^= load_lane<kWords>(p + b * kRate, i, kRate);
+        keccak_f1600(a);
+    }
+    // the last block: the message tail, then the pad in registers
+    const uint8_t* last = p + full * kRate;
+    const int pad_lane = tail >> 3;
+    const uint64_t pad_bit = (uint64_t)0x01 << (8 * (tail & 7));
+#pragma unroll
+    for (int i = 0; i < kLanesPerBlock; ++i) {
+        uint64_t lane = load_lane<kWords>(last, i, tail);
+        if (i == pad_lane) lane ^= pad_bit;
+        if (i == kLanesPerBlock - 1) lane ^= 0x8000000000000000ull;
+        a[i] ^= lane;
+    }
+    keccak_f1600(a);
+    uint64_t* o = out + row * 4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[i] = a[i];
+}
+
 }  // namespace
 
 // Hash n padded rows of nblocks rate blocks each on `stream` of `device`.
@@ -145,5 +125,25 @@ extern "C" int khipu_keccak256_rows(const void* in, void* out, long long n,
     const long long grid = (n + kThreads - 1) / kThreads;
     keccak256_rows_kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
         (const uint64_t*)in, (uint64_t*)out, n, nblocks);
+    return (int)cudaGetLastError();
+}
+
+// K1f: hash n unpadded rows of `length` bytes each (contiguous, row
+// stride = length). `words` selects u32 loads: length % 4 == 0 and `in`
+// 4-byte aligned, checked by the wrapper. Returns the launch's cudaError_t.
+extern "C" int khipu_keccak256_fixed(const void* in, void* out, long long n,
+                                     int length, int words, int device,
+                                     void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (n <= 0) return 0;
+    const long long grid = (n + kThreads - 1) / kThreads;
+    if (words) {
+        keccak256_fixed_kernel<true><<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
+            (const uint8_t*)in, (uint64_t*)out, n, length);
+    } else {
+        keccak256_fixed_kernel<false><<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
+            (const uint8_t*)in, (uint64_t*)out, n, length);
+    }
     return (int)cudaGetLastError();
 }

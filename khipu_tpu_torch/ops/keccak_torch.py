@@ -1,4 +1,5 @@
-"""Keccak-256 in plain PyTorch: the plain version of kernel K1.
+"""Keccak-256 in plain PyTorch: the plain versions of kernels K1
+(``absorb_padded``) and K1f (``absorb_fixed``).
 
 The sponge runs on int64 tensors shaped [25, N] (lane, message), so each
 step of a round is one tensor op over every lane of every message. The
@@ -97,6 +98,28 @@ def absorb_padded(padded_u8: torch.Tensor) -> torch.Tensor:
         a[:LANES_PER_BLOCK] ^= blk.t()
         a = f1600(a)
     return a[:4].t().contiguous().view(torch.uint8).reshape(n, 32)
+
+
+def pad_fixed(data_u8: torch.Tensor) -> torch.Tensor:
+    """Multi-rate pad N messages of one length L on their own device:
+    u8[N, L] -> u8[N, (L // 136 + 1) * 136]. The pad XORs, so L % 136 ==
+    135 puts 0x81 in one byte and L % 136 == 0 adds a block of padding
+    alone."""
+    if data_u8.dtype != torch.uint8 or data_u8.dim() != 2:
+        raise ValueError("expected u8[N, L]")
+    n, length = data_u8.shape
+    width = (length // RATE + 1) * RATE
+    padded = torch.zeros((n, width), dtype=torch.uint8, device=data_u8.device)
+    padded[:, :length] = data_u8
+    padded[:, length] ^= 0x01
+    padded[:, width - 1] ^= 0x80
+    return padded
+
+
+def absorb_fixed(data_u8: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1f: u8[N, L] unpadded rows of one length ->
+    u8[N, 32], on the tensor's own device."""
+    return absorb_padded(pad_fixed(data_u8))
 
 
 def pad_to_words(messages: Sequence[bytes], nblocks: int) -> np.ndarray:

@@ -1,1 +1,3 @@
-"""Node stores the state-root pipeline reads and persists into."""
+"""Storage: the DataSource SPI, the memory engine, node stores with
+their reorg ring and read cache, the app state, the ``Storages``
+façade, the device node mirror and the compactor."""

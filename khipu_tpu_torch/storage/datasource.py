@@ -1,29 +1,77 @@
-"""In-memory content-addressed node store.
+"""DataSource SPI and the in-memory engines.
 
-The port's counterpart of ``khipu_tpu.storage.datasource.
-MemoryNodeDataSource`` (EphemNodeDataSource in the reference): a dict
-behind the ``get`` / ``put`` / ``update`` surface that
-``MerklePatriciaTrie`` reads and persists into.
+The port's counterpart of ``khipu_tpu.storage.datasource`` (parity:
+khipu-storage/.../datasource/DataSource.scala:6, NodeDataSource.scala:5,
+KeyValueDataSource.scala:3; EphemNodeDataSource is the model for the
+Memory* engines). The chaos plane's ``fault_point`` hooks and the block
+data sources are not carried: the port has no chaos plane and no block
+stores yet.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, Iterable, Mapping, Optional
+from typing import Dict, Iterable, List, Mapping, Optional
+
+from khipu_tpu_torch.storage.cache import Clock
 
 
-class MemoryNodeDataSource:
-    """hash -> node RLP, content-addressed (key == keccak256(value))."""
+class DataSource:
+    """Common DataSource surface: metrics + lifecycle."""
 
     def __init__(self) -> None:
+        self.clock = Clock()
+
+    @property
+    def count(self) -> int:
+        raise NotImplementedError
+
+    @property
+    def cache_hit_rate(self) -> float:
+        return 0.0
+
+    @property
+    def cache_read_count(self) -> int:
+        return 0
+
+    def stop(self) -> None:
+        pass
+
+
+class KeyValueDataSource(DataSource):
+    """bytes -> bytes store."""
+
+    def get(self, key: bytes) -> Optional[bytes]:
+        raise NotImplementedError
+
+    def put(self, key: bytes, value: bytes) -> None:
+        self.update([], {key: value})
+
+    def remove(self, key: bytes) -> None:
+        self.update([key], {})
+
+    def update(
+        self, to_remove: Iterable[bytes], to_upsert: Mapping[bytes, bytes]
+    ) -> None:
+        raise NotImplementedError
+
+
+class NodeDataSource(KeyValueDataSource):
+    """Content-addressed trie-node store: key == keccak256(value)."""
+
+
+class MemoryKeyValueDataSource(KeyValueDataSource):
+    def __init__(self) -> None:
+        super().__init__()
         self._map: Dict[bytes, bytes] = {}
         self._lock = threading.Lock()
 
     def get(self, key: bytes) -> Optional[bytes]:
-        return self._map.get(bytes(key))
-
-    def put(self, key: bytes, value: bytes) -> None:
-        self.update([], {key: value})
+        t0 = self.clock.start()
+        try:
+            return self._map.get(bytes(key))
+        finally:
+            self.clock.elapse(t0)
 
     def update(
         self, to_remove: Iterable[bytes], to_upsert: Mapping[bytes, bytes]
@@ -37,3 +85,18 @@ class MemoryNodeDataSource:
     @property
     def count(self) -> int:
         return len(self._map)
+
+    def keys(self) -> List[bytes]:
+        return list(self._map.keys())
+
+
+class MemoryNodeDataSource(MemoryKeyValueDataSource, NodeDataSource):
+    """In-memory content-addressed node store (EphemNodeDataSource):
+    the store ``MerklePatriciaTrie`` reads and persists into."""
+
+
+def verify_content_address(key: bytes, value: bytes) -> bool:
+    """Short-key collision guard (KesqueNodeDataSource.scala:61-63)."""
+    from khipu_tpu_torch.base.keccak import keccak256
+
+    return keccak256(value) == key

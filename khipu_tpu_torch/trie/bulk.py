@@ -272,7 +272,7 @@ def _resolve_fused(levels, device, stats_out=None) -> Dict[bytes, bytes]:
         stats_out["device_s"] = _time.perf_counter() - t1
 
     nodes: Dict[bytes, bytes] = {}
-    with _span("bulk.substitute", nodes=len(ph_nodes)):
+    with _span("bulk.substitute"):
         for ph, node in ph_nodes:
             real = mapping[ph]
             node.encoded = _substitute_bytes(node.encoded, mapping)

@@ -238,7 +238,7 @@ def finalize(
         else:
             removed[h] = rec
 
-    with _span("finalize.inputs", live=len(live)):
+    with _span("finalize.inputs"):
         if return_mapping:
             # Resolve EVERY placeholder the session created (the staged
             # store retains them): a window's intermediate block roots
@@ -270,7 +270,7 @@ def finalize(
             # substitution is length-invariant, so the byte-level
             # substitute over the RAW encoding equals the loop path's
             # decode -> substitute -> re-encode
-            with _span("finalize.substitute", nodes=len(to_resolve)):
+            with _span("finalize.substitute"):
                 for ph, enc in to_resolve.items():
                     final_encoded[resolved[ph]] = _substitute_bytes(
                         enc, resolved

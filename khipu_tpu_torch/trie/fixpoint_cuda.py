@@ -47,11 +47,11 @@ def substitute(enc, rows, offs, child, digests, ext, total_rows: int) -> None:
     if n == 0:
         return
     lib = build.load()
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    index, stream = build.launch_args(enc)
     rc = lib.khipu_fixpoint_substitute(
         enc.data_ptr(), enc.shape[1], rows.data_ptr(), offs.data_ptr(),
         child.data_ptr(), n, digests.data_ptr(), ext.data_ptr(), total_rows,
-        index, torch.cuda.current_stream(dev).cuda_stream,
+        index, stream,
     )
     if rc:
         raise RuntimeError(f"K2 fixpoint kernel launch failed: cudaError {rc}")

@@ -283,7 +283,7 @@ class FusedJob:
             [self.dpos[r] for r in present], dtype=torch.long,
             device=self.digests.device,
         )
-        with _span("fused.rootcheck", rows=len(present)):
+        with _span("fused.rootcheck"):
             blob = self.digests.index_select(0, rows).cpu().numpy().tobytes()
         for i, r in enumerate(present):
             out[r] = blob[32 * i : 32 * i + 32]
@@ -305,7 +305,7 @@ class FusedJob:
             return self._mapping
         if self._host is None:
             return {}
-        with _span("fused.collect", rows=int(self._host.shape[0])):
+        with _span("fused.collect"):
             if self._event is not None:
                 self._event.synchronize()
             blob = self._host.numpy().tobytes()
@@ -365,12 +365,7 @@ def fused_submit(
     (``FusedJob.admit_tiles``).
     """
     dev = resolve_device(device)
-    with _span(
-        "fused.dispatch",
-        nodes=len(to_resolve),
-        ext_rows=int(ext[0].shape[0]) if ext is not None else 0,
-        admit=len(admit_live) if admit_live else 0,
-    ):
+    with _span("fused.dispatch"):
         return _fused_submit(
             to_resolve, deps, prefix, dev, depth, ext, admit_live
         )
@@ -392,13 +387,13 @@ def _fused_submit(to_resolve, deps, prefix, dev, depth, ext,
         ext_dev = torch.zeros((0, 32), dtype=torch.uint8, device=dev)
         ext_pos = {}
 
-    with _span("seal.dispatch_build", nodes=len(to_resolve)):
+    with _span("seal.dispatch_build"):
         classes, dpos, total_rows = pack(
             to_resolve, prefix, dev, ext_pos, int(ext_dev.shape[0]),
             admit_live,
         )
     rounds = max(1, depth)
-    with _span("seal.upload", rounds=rounds):
+    with _span("seal.upload"):
         digests = run_fixpoint(classes, total_rows, ext_dev, rounds)
     FUSED_GAUGES["dispatches"] += 1
     FUSED_GAUGES["last_nodes"] = len(to_resolve)

@@ -3,10 +3,11 @@
 
     python3 scripts/torch_profile.py [--seed N] [--out DIR]
 
-Runs the two main-path workloads of ``chip_smoke.py`` on the card — a
-fresh 100,000-account ``bulk_build(fused=True)`` and a 16-block x
-400-write window ``finalize(fused=True, return_mapping=True)`` — once
-with only the port's spans on, then once under ``torch.profiler``. For
+Runs main-path workloads of ``chip_smoke.py`` on the card — a fresh
+100,000-account ``bulk_build(fused=True)``, a 16-block x 400-write
+window ``finalize(fused=True, return_mapping=True)`` and a fast sync of
+that state with 1,000 contracts into a ``DeviceNodeMirror`` — once with
+only the port's spans on, then once under ``torch.profiler``. For
 each it prints one JSON line: host wall seconds, span seconds, the
 device's busy seconds (the union of device activity intervals in the
 trace), the device's idle share of the profiled wall time, and device
@@ -88,6 +89,10 @@ def main() -> int:
     from khipu_tpu_torch import observability, workloads
     from khipu_tpu_torch.ops import build
     from khipu_tpu_torch.state import load_reference_nodes
+    from khipu_tpu_torch.storage.datasource import MemoryKeyValueDataSource
+    from khipu_tpu_torch.storage.device_mirror import TILE, DeviceNodeMirror
+    from khipu_tpu_torch.storage.storages import Storages
+    from khipu_tpu_torch.sync.fast_sync import FastSyncStateStorage, StateSyncer
     from khipu_tpu_torch.trie import bulk, deferred
 
     print(subprocess.run(
@@ -99,7 +104,7 @@ def main() -> int:
     build.load()
 
     def measure(name, fn, **extra):
-        observability.SPANS.clear()
+        observability.SPAN_TOTALS.clear()
         observability.enable()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -107,9 +112,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         observability.enable(False)
-        spans = {}
-        for span_name, sec, _ in observability.SPANS:
-            spans[span_name] = spans.get(span_name, 0.0) + sec
+        spans = {k: v[1] for k, v in observability.SPAN_TOTALS.items()}
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -129,6 +132,20 @@ def main() -> int:
         lambda: bulk.bulk_build(pairs, fused=True, device=dev),
         accounts=args.accounts,
     )
+
+    src_root, stores = workloads.contract_snapshot(
+        pairs, np.random.default_rng(args.seed + 1), device=dev)
+    total = sum(len(s) for s in stores)
+    capacity = -(-total // TILE) * TILE
+
+    def sync():
+        syncer = StateSyncer(
+            Storages(), FastSyncStateStorage(MemoryKeyValueDataSource()),
+            workloads.snapshot_fetch(stores),
+            mirror=DeviceNodeMirror(capacity, device=dev), device=dev)
+        return syncer.start(src_root).downloaded_nodes
+
+    measure("fast_sync", sync, nodes=total)
 
     session = deferred.DeferredMPT(load_reference_nodes(nodes), root_hash=root)
     blocks = workloads.TransferBlocks(pairs, np.random.default_rng(args.seed))

@@ -12,7 +12,16 @@ import pytest
 import torch
 
 from khipu_tpu_torch.ops import build, keccak_cuda
-from khipu_tpu_torch.ops.keccak import keccak256_batch, keccak256_fixed
+from khipu_tpu_torch.ops.keccak import (
+    keccak256_batch,
+    keccak256_device_fixed,
+    keccak256_fixed,
+)
+from khipu_tpu_torch.storage import mirror_cuda
+from khipu_tpu_torch.storage.datasource import MemoryKeyValueDataSource
+from khipu_tpu_torch.storage.device_mirror import DeviceNodeMirror
+from khipu_tpu_torch.storage.storages import Storages
+from khipu_tpu_torch.sync.fast_sync import FastSyncStateStorage, StateSyncer
 from khipu_tpu_torch.trie import bulk, deferred, fixpoint_cuda, fused
 from khipu_tpu_torch.trie.mpt import MerklePatriciaTrie
 from khipu_tpu_torch.state import load_reference_nodes
@@ -72,9 +81,17 @@ def _session():
         MerklePatriciaTrie(load_reference_nodes({})), [(b"k" * 32, b"v" * 40)]
     ),
     lambda: fused.fused_submit({b"p" * 32: b"e" * 40}, {}, b"p"),
+    lambda: keccak256_device_fixed(np.zeros((2, 20), np.uint8)),
+    lambda: keccak256_device_fixed(np.zeros((2, 5), np.uint32)),
+    lambda: DeviceNodeMirror(),
+    lambda: StateSyncer(
+        Storages(), FastSyncStateStorage(MemoryKeyValueDataSource()),
+        lambda want: {},
+    ).start(b"\x00" * 32),
 ], ids=["batch", "batch-cuda", "fixed", "device_hasher", "bulk_fused",
         "bulk_levels", "finalize_fused", "finalize_levels", "commit",
-        "batch_commit", "fused_submit"])
+        "batch_commit", "fused_submit", "device_fixed", "device_fixed_words",
+        "mirror", "state_syncer"])
 def test_entry_points_raise_without_card(no_card, call):
     with pytest.raises(RuntimeError, match="is_available"):
         call()
@@ -88,10 +105,28 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     d = torch.zeros((1, 32), dtype=torch.uint8)
     with pytest.raises(ValueError):
         fixpoint_cuda.substitute(rows, i32, i32, i32, d, d, 1)
+    with pytest.raises(ValueError):
+        keccak_cuda.absorb_fixed(torch.zeros((2, 20), dtype=torch.uint8))
+    planes = torch.zeros((34, 4), dtype=torch.int32)
+    out = torch.zeros((8, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        mirror_cuda.hash_planes(planes, 1, 34, out)
+    with pytest.raises(ValueError):
+        mirror_cuda.verify_planes(planes, out, 1, 34)
 
 
 def test_build_sees_both_kernel_sources():
     assert sorted(p.name for p in build.sources()) == [
-        "fixpoint.cu", "keccak.cu"
+        "fixpoint.cu", "keccak.cu", "mirror.cu"
     ]
+    assert [p.name for p in build.headers()] == ["keccak_f1600.cuh"]
     assert build.BUILD_DIR.name == "_build"
+
+
+def test_build_key_covers_shared_headers(monkeypatch):
+    """The shared permutation header is part of the library's name, so
+    an edit to it cannot reuse a stale build."""
+    srcs = build.sources()
+    key = build._key(srcs)
+    monkeypatch.setattr(build, "headers", lambda: [])
+    assert build._key(srcs) != key

@@ -1,8 +1,8 @@
 """The port's batched Keccak-256 (khipu_tpu_torch.ops) against the JAX
-package: the plain PyTorch sponge on the CPU must give exactly the bytes
-of the jnp sponge and of the scalar oracle. Kernel K1 itself runs only
-on the card; ``chip_smoke.py`` holds it against the same plain version.
-Tolerance: exact bytes."""
+package: the plain PyTorch sponges on the CPU must give exactly the bytes
+of the jnp sponge and of the scalar oracle. Kernels K1 and K1f run only
+on the card; ``chip_smoke.py`` holds them against the same plain
+versions. Tolerance: exact bytes."""
 
 import numpy as np
 import pytest
@@ -12,7 +12,12 @@ from khipu_tpu.base.crypto.keccak import keccak256
 from khipu_tpu.ops import keccak_jnp
 from khipu_tpu_torch.base.keccak import keccak256_py
 from khipu_tpu_torch.ops import keccak_torch
-from khipu_tpu_torch.ops.keccak import hash_padded, keccak256_batch, keccak256_fixed
+from khipu_tpu_torch.ops.keccak import (
+    hash_padded,
+    keccak256_batch,
+    keccak256_device_fixed,
+    keccak256_fixed,
+)
 
 # rate-class edges: 0..5 rate blocks, both sides of each boundary
 EDGES = (0, 1, 31, 32, 135, 136, 137, 271, 272, 543, 544, 576)
@@ -93,3 +98,41 @@ def test_copied_helpers_match_reference(nblocks):
 def test_empty_batch():
     assert keccak256_batch([], device="cpu") == []
     assert keccak_torch.keccak256_batch_plain([]) == []
+
+
+# K1f's pad edges: empty, unaligned, 20 B address and 32 B slot keys, both
+# pad bits in one byte (135), a block of padding alone (136, 272)
+K1F_EDGES = (0, 1, 20, 32, 135, 136, 137, 271, 272)
+
+
+@pytest.mark.parametrize("length", K1F_EDGES)
+def test_device_fixed_vs_jnp_route(length):
+    """``keccak256_device_fixed`` on the CPU (K1f's plain version) against
+    the JAX package's CPU route: its own host pad, then the jnp sponge.
+    u32 word input gives the same digests as the bytes."""
+    data = np.random.default_rng(100 + length).integers(
+        0, 256, (16, length), dtype=np.uint8
+    )
+    nblocks = length // 136 + 1
+    padded = keccak_jnp.pad_to_words(
+        [row.tobytes() for row in data], nblocks
+    ).view(np.uint8)
+    ref = np.asarray(keccak_jnp.hash_padded_u8(padded, nblocks))
+    got = keccak256_device_fixed(data, device="cpu")
+    assert got.dtype == torch.uint8 and got.shape == (16, 32)
+    assert got.numpy().tobytes() == ref.tobytes()
+    assert torch.equal(keccak_torch.absorb_fixed(torch.from_numpy(data)), got)
+    if length and length % 4 == 0:
+        words = torch.from_numpy(data.copy()).view(torch.int32)
+        assert torch.equal(keccak256_device_fixed(words, device="cpu"), got)
+        assert torch.equal(
+            keccak256_device_fixed(data.view("<u4"), device="cpu"), got
+        )
+
+
+def test_pad_fixed_edges():
+    for length, lead in ((135, 0x81), (0, 0x01)):
+        row = keccak_torch.pad_fixed(torch.zeros((1, length), dtype=torch.uint8))[0]
+        assert row.shape[0] == 136 and int(row[length]) == lead
+    row = keccak_torch.pad_fixed(torch.zeros((1, 136), dtype=torch.uint8))[0]
+    assert row.shape[0] == 272 and int(row[136]) == 1 and int(row[271]) == 0x80
