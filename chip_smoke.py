@@ -4,19 +4,23 @@
     python3 chip_smoke.py [--seed N]
 
 Builds kernels K1 (Keccak sponge), K1f (the sponge with the pad fused),
-K2 (fixpoint substitution), K3 (mirror hash) and K4 (mirror verify)
-from the repository's CUDA sources, holds each against its plain
+K5 (the level-ordered fixpoint: substitute and hash every staged node
+once, all levels in one launch), K3 (mirror hash) and K4 (mirror
+verify) from the repository's CUDA sources, holds each against its plain
 PyTorch version on the card, then drives the port through the entry
 points a user calls:
 
   1. build every kernel with nvcc, one process per source
   2. K1 vs the plain sponge: rate-class edges, 1,048,576 x 576 B, and a
-     mixed-length ``keccak256_batch`` in input order
+     mixed-length ``keccak256_batch`` in input order; K1 timed also at
+     fast sync's 100-row batches
   2b. K1f (``keccak256_device_fixed``) vs K1 over the same 1,048,576 x
      576 B rows padded on the card, and vs the plain version (and the
      scalar oracle on sampled rows) at the pad's edge lengths
-  3. K1 + K2 fixpoint vs the plain fixpoint on the card: ``fused_submit``
-     with a resolved-input (ext) tile and mirror admit rows
+  3. K5 vs its plain version on the card: ``fused_submit`` of a
+     6-root session (children with several parents) with a
+     resolved-input (ext) tile and mirror admit rows, against
+     ``resolve_levels_plain`` and the level loop's digests
   4. mainnet genesis (8,893 accounts): ``bulk_build(fused=True)`` root
      equals geth's
   5. a fresh 100,000-account state trie: ``bulk_build(fused=True)``
@@ -24,7 +28,10 @@ points a user calls:
   6. a window of 16 blocks x 400 account writes in one ``DeferredMPT``
      session, ``finalize(fused=True)``: every per-block root and the
      persisted node set equal the level loop with the plain hasher
-  7. launch counts of phases 4-6 (K1, K1f, K2), K2 timed
+  7. launch counts of phases 4-6 (K5 three times, K1 never), K5 timed
+     at the 100k trie's and the window's shapes beside its plain
+     version and K1 run over every row once per level (the design K5
+     replaced)
   8. mirror_verify (BASELINE config #5 on one card): 10,485,760 x 576 B
      nodes generated on the card, claims by K1f, ``admit_packed(...,
      exact=True)``, ``verify()`` == 0 and exactly 1 for each negative
@@ -209,7 +216,7 @@ class Launches:
         self.fields = (
             ("k1", keccak_cuda, "LAUNCHES"),
             ("k1f", keccak_cuda, "FIXED_LAUNCHES"),
-            ("k2", fixpoint_cuda, "LAUNCHES"),
+            ("k5", fixpoint_cuda, "LAUNCHES"),
             ("k3", mirror_cuda, "HASH_LAUNCHES"),
             ("k4", mirror_cuda, "VERIFY_LAUNCHES"),
         )
@@ -273,10 +280,6 @@ def main() -> int:
     plain_hasher = lambda msgs: keccak_torch.keccak256_batch_plain(msgs, dev)  # noqa: E731
     launches = Launches(keccak_cuda, fixpoint_cuda, mirror_cuda)
 
-    def plain_hash_rows(enc, out):
-        out.copy_(keccak_torch.absorb_padded(enc))
-        return out
-
     # 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
     build.load()
@@ -323,6 +326,20 @@ def main() -> int:
     k1_plain_ms = cuda_ms(torch, lambda: keccak_torch.absorb_padded(padded), 2)
     k1_bound, k1_bound_by = k1_bound_ms(n_msg, nblocks)
     del padded, plain_out, k1_out
+    # fast sync's content check launches K1 once per rate class of each
+    # 100-node batch: leaves are 1 rate block, full branches 4
+    k1_batch100 = {}
+    for nb in (1, 4):
+        rows = torch.randint(0, 256, (100, nb * 136), dtype=torch.uint8,
+                             device=dev, generator=gen)
+        out = keccak_cuda.absorb_padded(rows)
+        check(torch.equal(out, keccak_torch.absorb_padded(rows)),
+              f"K1 != plain at 100 x {nb} blocks")
+        bound, bound_by = k1_bound_ms(100, nb)
+        k1_batch100[f"{nb}_blocks"] = {
+            "ms": cuda_ms(torch, lambda: keccak_cuda.absorb_padded(rows, out),
+                          200),
+            "bound_ms": bound, "bound_by": bound_by}
 
     lens = rng.integers(0, 600, 5000)
     mixed = [rng.integers(0, 256, int(n), dtype=np.uint8).tobytes()
@@ -334,7 +351,7 @@ def main() -> int:
     emit({"phase": "k1", "messages": n_msg, "bytes": length,
           "k1_ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
           "hashes_per_s": n_msg / (k1_ms / 1e3), "max_abs_err": k1_err,
-          "mixed_batch": len(mixed)})
+          "mixed_batch": len(mixed), "batch100": k1_batch100})
 
     # 2b. K1f against K1 and the plain version -----------------------------
     data = torch.randint(0, 256, (n_msg, length), dtype=torch.uint8,
@@ -369,14 +386,15 @@ def main() -> int:
           "hashes_per_s": n_msg / (k1f_ms / 1e3), "max_abs_err": k1f_err,
           "edge_lengths": list(K1F_EDGES), "edge_rows": args.edge_rows})
 
-    # 3. K1 + K2 fixpoint against the plain fixpoint on the card ----------
+    # 3. K5 against its plain version on the card ------------------------
     session = deferred.DeferredMPT(load_reference_nodes({}))
     for i in range(3000):
         session = session.put(
             address_key(b"phase3" + i.to_bytes(14, "big")),
             Account(i, 10**18 + int(rng.integers(0, 10**9))).encode(),
         )
-    session.force_hashed_root()
+        if i % 500 == 499:  # six roots that share subtrees
+            session.force_hashed_root()
     to_resolve, deps, _ = deferred.resolution_inputs(session)
     _, truth = deferred.finalize(session, plain_hasher, return_mapping=True)
     leaves = fused.topo_levels(deps)[0]
@@ -392,36 +410,38 @@ def main() -> int:
     prefix = deferred._PLACEHOLDER_PREFIX
     job = fused.fused_submit(tr, dp, prefix, device=dev, ext=(ext, ext_pos),
                              admit_live=live)
-    rounds = fused.FUSED_GAUGES["last_rounds"]
-    classes, _, total = fused.pack(tr, prefix, dev, ext_pos, len(ext_keys),
-                                   live)
-    plain_g = fused.run_fixpoint(classes, total, ext, rounds,
-                                 hash_rows=plain_hash_rows,
-                                 scatter=fused._substitute_plain)
+    levels = fused.FUSED_GAUGES["last_levels"]
+    classes, _, total, plan = fused.pack(tr, prefix, dev, ext_pos,
+                                         len(ext_keys), live)
+    plain_g = fused.resolve_levels_plain(classes, total, ext, plan)
     check(job.collect() == {ph: truth[ph] for ph in tr},
-          "fixpoint digests != truth")
+          "K5 digests != the level loop's")
+    inner = plan.tchild[plan.tchild < total]
+    max_parents = int(np.bincount(inner).max())
+    check(max_parents > 1, "no child with several parents in phase 3")
+    check(int((plan.tchild >= total).sum()) > 0, "no ext child in phase 3")
+    k5_err = int((job.digests.int() - plain_g.int()).abs().max())
+    check(k5_err == 0 and torch.equal(job.digests, plain_g),
+          "K5 digests != plain")
     tiles = {t[0]: t for t in job.admit_tiles}
     for c, enc in zip(classes, job.encs):
-        real = slice(c.base, c.base + len(c.keys))
-        check(torch.equal(job.digests[real], plain_g[real]),
-              f"fixpoint digests != plain (class {c.nb})")
-        check(torch.equal(enc[: len(c.keys)], c.enc[: len(c.keys)]),
-              f"final encodings != plain (class {c.nb})")
+        k5_err = max(k5_err, int((enc.int() - c.enc.int()).abs().max()))
+        check(torch.equal(enc, c.enc), f"K5 final encodings != plain "
+              f"(class {c.nb})")
         if c.aidx is not None:
-            nb, keys, enc_g, claim_g, _ = tiles[c.nb]
-            n_live = sum(k is not None for k in keys)
-            check(torch.equal(enc_g[:n_live],
-                              c.enc.index_select(0, c.aidx)[:n_live]),
+            _, _, enc_g, claim_g, _ = tiles[c.nb]
+            check(torch.equal(enc_g, c.enc.index_select(0, c.aidx)),
                   f"admit encodings != plain (class {c.nb})")
-            check(torch.equal(claim_g[:n_live], plain_g.index_select(
-                0, c.aidx + c.base)[:n_live]),
-                  f"admit digests != plain (class {c.nb})")
+            check(torch.equal(claim_g, plain_g.index_select(
+                0, c.aidx + c.base)), f"admit digests != plain (class {c.nb})")
     emit({"phase": "fixpoint", "nodes": len(tr), "ext_rows": len(ext_keys),
-          "admit": len(live), "rounds": rounds, "classes": len(classes)})
+          "ext_children": int((plan.tchild >= total).sum()),
+          "admit": len(live), "levels": levels, "classes": len(classes),
+          "triples": plan.ntriples, "max_parents": max_parents,
+          "max_abs_err": k5_err})
 
     # 4-6: the main path, with the launch counts zeroed just before -------
     launches.zero()
-    fused.FUSED_GAUGES["unsupported_fallbacks"] = 0
     main_t0 = time.perf_counter()
 
     # 4. mainnet genesis
@@ -446,14 +466,14 @@ def main() -> int:
     s_root, s_nodes = bulk.bulk_build(pairs, fused=True, device=dev,
                                       stats_out=stats)
     bulk_s = time.perf_counter() - t0
-    bulk_rounds = fused.FUSED_GAUGES["last_rounds"]
+    bulk_levels = fused.FUSED_GAUGES["last_levels"]
     t0 = time.perf_counter()
     check((s_root, s_nodes) == bulk.bulk_build(pairs, hasher=plain_hasher),
           "100k bulk build != level loop with the plain hasher")
     emit({"phase": "bulk_100k", "accounts": n_acc, "nodes": len(s_nodes),
           "root": s_root.hex(), "seconds": bulk_s,
           "pack_s": stats["pack_s"], "device_s": stats["device_s"],
-          "rounds": bulk_rounds,
+          "levels": bulk_levels,
           "plain_level_loop_seconds": time.perf_counter() - t0})
 
     # 6. a window of blocks in one deferred session over that state
@@ -478,8 +498,8 @@ def main() -> int:
     finalize_s = time.perf_counter() - t0
     observability.enable(False)
     spans = {k: v[1] for k, v in observability.SPAN_TOTALS.items()}
-    w_nodes, w_rounds = (fused.FUSED_GAUGES["last_nodes"],
-                         fused.FUSED_GAUGES["last_rounds"])
+    w_nodes, w_levels = (fused.FUSED_GAUGES["last_nodes"],
+                         fused.FUSED_GAUGES["last_levels"])
     l_trie, l_map = deferred.finalize(sessions[1], plain_hasher,
                                       return_mapping=True)
     roots = [w_map[r] for r in refs[0]]
@@ -491,56 +511,82 @@ def main() -> int:
     check(hashed == list(upserts), "a persisted node is not content-addressed")
     emit({"phase": "window", "blocks": args.blocks, "writes": args.writes,
           "apply_seconds": apply_s, "finalize_seconds": finalize_s,
-          "nodes": w_nodes, "depth": w_rounds, "rounds": w_rounds,
+          "nodes": w_nodes, "levels": w_levels,
           "persisted": len(upserts), "root": roots[-1].hex(),
           "finalize_spans_s": spans})
 
     torch.cuda.synchronize()
-    path = launches.read("state_root", ("k1", "k1f", "k2"))
-    k1_launches, k2_launches = path["k1"], path["k2"]
-    fallbacks = fused.FUSED_GAUGES["unsupported_fallbacks"]
+    path = launches.read("state_root", ("k1f", "k5"))
+    check(path["k5"] == 3, f"K5 launched {path['k5']} times, not once per "
+          "fused_submit (genesis, bulk_100k, window)")
+    check(path["k1"] == 0, f"K1 launched {path['k1']} times on the state "
+          "root path")
     main_s = time.perf_counter() - main_t0
-
-    # 7. K2 timed at the 100k trie's shapes (one round over every class)
-    to_resolve, _ = bulk.placeholder_dag(bulk.build_levels(pairs)[1])
-    classes, _, total = fused.pack(to_resolve, deferred._PLACEHOLDER_PREFIX,
-                                   dev)
-    empty = torch.zeros((0, 32), dtype=torch.uint8, device=dev)
-    digests = torch.empty((total, 32), dtype=torch.uint8, device=dev)
-    for c in classes:
-        keccak_cuda.absorb_padded(c.enc, digests[c.base : c.base + c.nrows])
-    encs_k = [c.enc.clone() for c in classes]
-    encs_p = [c.enc.clone() for c in classes]
-
-    def k2_round(encs=encs_k):
-        for c, e in zip(classes, encs):
-            fixpoint_cuda.substitute(e, c.rows, c.offs, c.child, digests,
-                                     empty, total)
-
-    def plain_round(encs=encs_p):
-        for c, e in zip(classes, encs):
-            fused._substitute_plain(e, c.rows, c.offs, c.child, digests,
-                                    empty, total)
-
-    k2_round()
-    plain_round()
-    torch.cuda.synchronize()
-    k2_err = max(int((a.int() - b.int()).abs().max())
-                 for a, b in zip(encs_k, encs_p))
-    check(k2_err == 0, "K2 != plain substitution at the 100k shapes")
-    k2_ms = cuda_ms(torch, k2_round, 20)
-    k2_plain_ms = cuda_ms(torch, plain_round, 20)
-    n_subs = sum(c.nsubs for c in classes)
-    k2_bound = n_subs * (12 + 32 + 32) / H100_BYTES_PER_S * 1e3
-
-    check(k1_launches > 0, "K1 was not launched on the main path")
-    check(k2_launches > 0, "K2 was not launched on the main path")
-    check(fallbacks == 0, "a fused finalize fell back to the level loop")
     emit({"phase": "main_path", "seconds": main_s,
-          "k1_launches": k1_launches, "k2_launches": k2_launches,
-          "k1f_launches": path["k1f"],
-          "unsupported_fallbacks": fallbacks, "k2_triples": n_subs,
-          "k2_classes": len(classes)})
+          "k5_launches": path["k5"], "k1_launches": path["k1"],
+          "k1f_launches": path["k1f"]})
+
+    # 7. K5 timed at the 100k trie's and the window's shapes --------------
+    per_sm, sms = fixpoint_cuda.occupancy(dev)
+    w_resolve, w_deps, _ = deferred.resolution_inputs(sessions[0])
+    bulk_resolve, _ = bulk.placeholder_dag(bulk.build_levels(pairs)[1])
+    empty = torch.zeros((0, 32), dtype=torch.uint8, device=dev)
+    k5_shapes = {}
+    for shape, resolve in (("bulk_100k", bulk_resolve),
+                           ("window_16x400", w_resolve)):
+        classes, _, total, plan = fused.pack(resolve, prefix, dev)
+        plain = [fused.PackedClass() for _ in classes]
+        for p, c in zip(plain, classes):
+            p.nb, p.keys, p.base, p.enc = c.nb, c.keys, c.base, c.enc.clone()
+        digests = torch.empty((total, 32), dtype=torch.uint8, device=dev)
+
+        def k5():
+            fixpoint_cuda.resolve_levels(
+                [c.enc for c in classes], [c.base for c in classes], digests,
+                empty, plan.d_order, plan.d_level_ptr, plan.d_tptr,
+                plan.d_toff, plan.d_tchild, plan.widest)
+
+        k5()
+        plain_g = fused.resolve_levels_plain(plain, total, empty, plan)
+        torch.cuda.synchronize()
+        err = max([int((digests.int() - plain_g.int()).abs().max())]
+                  + [int((c.enc.int() - p.enc.int()).abs().max())
+                     for c, p in zip(classes, plain)])
+        check(err == 0, f"K5 != plain at the {shape} shape")
+        k5_err = max(k5_err, err)
+        # K5 rewrites the same bytes when run again on its own output
+        ms = cuda_ms(torch, k5, 20)
+        check(torch.equal(digests, plain_g), f"K5 relaunch changed {shape}")
+        plain_ms = cuda_ms(torch, lambda: fused.resolve_levels_plain(
+            plain, total, empty, plan), 2)
+        ydig = torch.empty_like(digests)
+
+        def k1_rounds():
+            for _ in range(plan.nlevels):
+                for c in classes:
+                    keccak_cuda.absorb_padded(
+                        c.enc, ydig[c.base : c.base + c.nrows])
+
+        k1_rounds_ms = cuda_ms(torch, k1_rounds, 10)
+        row_blocks = sum(c.nrows * c.nb for c in classes)
+        enc_bytes = sum(c.enc.numel() for c in classes)
+        ops_ms = row_blocks * K1_OPS_PER_BLOCK / H100_INT32_OPS_PER_S * 1e3
+        # encodings read and written once, 8 index bytes a triple, 8 of
+        # order and tptr a row, 32 digest bytes written a row
+        bytes_ms = (2 * enc_bytes + 8 * plan.ntriples + 40 * total) \
+            / H100_BYTES_PER_S * 1e3
+        k5_shapes[shape] = {
+            "k5_ms": ms, "plain_ms": plain_ms, "k1_rounds_ms": k1_rounds_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "levels": plan.nlevels, "rows": total, "row_blocks": row_blocks,
+            "triples": plan.ntriples, "widest_level": plan.widest,
+            "grid_blocks": min(per_sm * sms, -(-plan.widest // 32)),
+            "max_abs_err": err}
+        del classes, plain, plan, digests, ydig, plain_g
+    emit({"phase": "k5", "blocks_per_sm": per_sm, "sms": sms,
+          "shapes": k5_shapes})
 
     # 8. mirror_verify: BASELINE config #5 on one card ---------------------
     aux = np.random.default_rng(args.seed + 1)
@@ -699,7 +745,6 @@ def main() -> int:
 
     # 10. window_admit: the window's admit tiles into a mirror ------------
     session = sessions[0]
-    w_resolve, w_deps, _ = deferred.resolution_inputs(session)
     live = {ph for ph, rec in session._logs.items()
             if deferred._is_placeholder(ph) and rec[0] > 0}
     launches.zero()
@@ -716,7 +761,7 @@ def main() -> int:
     bad = w_mirror.verify()
     torch.cuda.synchronize()
     admit_s = time.perf_counter() - t0
-    path = launches.read("window_admit", ("k1", "k2", "k4"))
+    path = launches.read("window_admit", ("k5", "k4"))
     check(mapping == w_map, "admit_live fixpoint mapping != finalize's")
     check(bad == 0, f"window mirror verify found {bad} mismatches")
     check(moved == len(live), f"rekey moved {moved} of {len(live)} rows")
@@ -738,6 +783,7 @@ def main() -> int:
     del w_mirror, job
 
     tot = launches.total
+    k5_window = k5_shapes["window_16x400"]
     emit({"kernels": [
         {"name": "keccak_sponge_k1", "route": "cuda",
          "source": "khipu_tpu_torch/ops/csrc/keccak.cu",
@@ -751,12 +797,13 @@ def main() -> int:
          "launches": tot["k1f"], "max_abs_err": k1f_err,
          "ms": k1f_ms, "plain_ms": k1f_plain_ms, "bound_ms": k1f_bound,
          "bound_by": k1f_bound_by, "library_ms": None},
-        {"name": "fixpoint_substitute_k2", "route": "cuda",
+        {"name": "fixpoint_levels_k5", "route": "cuda",
          "source": "khipu_tpu_torch/trie/csrc/fixpoint.cu",
          "replaces": "khipu_tpu/trie/fused.py:193",
-         "launches": tot["k2"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-         "bound_by": "bytes", "library_ms": None},
+         "launches": tot["k5"], "max_abs_err": k5_err,
+         "ms": k5_window["k5_ms"], "plain_ms": k5_window["plain_ms"],
+         "bound_ms": k5_window["bound_ms"], "bound_by": k5_window["bound_by"],
+         "library_ms": None},
         {"name": "mirror_hash_k3", "route": "cuda",
          "source": "khipu_tpu_torch/storage/csrc/mirror.cu",
          "replaces": "khipu_tpu/storage/device_mirror.py:80",

@@ -107,8 +107,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.khipu_mirror_hash.restype = i
     lib.khipu_mirror_verify.argtypes = [p, ll, ll, i, i, p, ll, p, i, p]
     lib.khipu_mirror_verify.restype = i
-    lib.khipu_fixpoint_substitute.argtypes = [p, ll, p, p, p, ll, p, p, ll, i, p]
-    lib.khipu_fixpoint_substitute.restype = i
+    lib.khipu_fixpoint_levels.argtypes = [p, i, p, p, i, p, p, p, p, p, ll,
+                                          ll, i, p]
+    lib.khipu_fixpoint_levels.restype = i
+    lib.khipu_fixpoint_levels_occupancy.argtypes = [i, p, p]
+    lib.khipu_fixpoint_levels_occupancy.restype = i
 
 
 def launch_args(t) -> tuple:

@@ -1,6 +1,6 @@
 // Keccak-f[1600] for Hopper (sm_90a), shared by every sponge kernel of
 // khipu_tpu_torch: K1 and K1f (ops/csrc/keccak.cu), K3 and K4
-// (storage/csrc/mirror.cu).
+// (storage/csrc/mirror.cu), K5 (trie/csrc/fixpoint.cu).
 //
 // One thread owns one message and keeps its 25 u64 lanes in registers;
 // rotations by constants become funnel shifts and chi's a ^ (~b & c) a

@@ -9,7 +9,7 @@ the other.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Union
+from typing import List, Sequence, Union
 
 import numpy as np
 import torch
@@ -18,20 +18,14 @@ from khipu_tpu_torch.device import resolve_device
 from khipu_tpu_torch.ops import keccak_cuda, keccak_torch
 
 
-def hash_padded(
-    padded: torch.Tensor, out: Optional[torch.Tensor] = None
-) -> torch.Tensor:
+def hash_padded(padded: torch.Tensor) -> torch.Tensor:
     """u8[N, nblocks*136] multi-rate padded rows -> u8[N, 32], on the
     rows' device."""
     if padded.is_cuda:
-        return keccak_cuda.absorb_padded(padded, out)
+        return keccak_cuda.absorb_padded(padded)
     if padded.device.type != "cpu":
         raise ValueError(f"unsupported device {padded.device}")
-    digests = keccak_torch.absorb_padded(padded)
-    if out is None:
-        return digests
-    out.copy_(digests)
-    return out
+    return keccak_torch.absorb_padded(padded)
 
 
 def keccak256_batch(messages: Sequence[bytes], device=None) -> List[bytes]:

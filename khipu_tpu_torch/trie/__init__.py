@@ -1,5 +1,5 @@
 """Merkle Patricia Trie: host MPT, bulk build, deferred commit and the
-fused fixpoint (K1 + K2 on the card, the plain versions on the CPU)."""
+fused fixpoint (K5 on the card, its plain version on the CPU)."""
 
 from khipu_tpu_torch.trie.mpt import EMPTY_TRIE_HASH, MerklePatriciaTrie
 from khipu_tpu_torch.trie.bulk import bulk_build

@@ -7,7 +7,7 @@ work, no hashing), then resolved bottom-up. Two resolvers:
   pass and hashed in ONE batched ``hasher`` call, then height h+1, etc.
 * ``_resolve_fused`` (``fused=True``): every node gets a 32-byte
   placeholder ref and the whole DAG resolves in one fixpoint on
-  ``device`` (trie/fused.py: kernels K1 + K2 on the card).
+  ``device`` (trie/fused.py: kernel K5 on the card).
 
 Roots are bit-exact with the host MerklePatriciaTrie, including the
 <32-byte inline ("capped") rule.
@@ -256,8 +256,8 @@ def _resolve_fused(levels, device, stats_out=None) -> Dict[bytes, bytes]:
 
     with _span("bulk.encode"):
         to_resolve, ph_nodes = placeholder_dag(levels)
-    # deps feed only the topological depth scan, and the exact depth is
-    # already known from the height pass — pass empty child lists
+    # the fixpoint finds the DAG from the encodings' placeholder spans;
+    # the structural depth bounds its levels
     t0 = _time.perf_counter()
     job = fused_submit(
         to_resolve, {}, _PLACEHOLDER_PREFIX, device=device,

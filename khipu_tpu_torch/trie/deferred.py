@@ -8,7 +8,7 @@ SURVEY §3.2); here the same update machinery runs with hashing
 *deferred*: ``_ref`` hands out 32-byte placeholder refs and records the
 encoding, and ``finalize`` resolves the placeholder DAG — one batched
 hasher call per dependency level, or (``fused=True``) the whole DAG in
-one fixpoint on the device (trie/fused.py: kernels K1 + K2 on the card).
+one launch on the device (trie/fused.py: kernel K5 on the card).
 It reuses MerklePatriciaTrie's insert/delete/capping logic verbatim so
 bit-exactness is inherited, not re-proven.
 
@@ -221,9 +221,8 @@ def finalize(
     ``device=None`` means the card, ``"cpu"`` the plain versions, and
     ``hasher`` defaults to the batched sponge on ``device``. With
     ``fused``, the whole DAG resolves in one fixpoint on ``device``
-    (trie/fused.py) instead of one hasher call per level. A DAG deeper
-    than ``fused.MAX_DEPTH`` falls back to the level loop with ``hasher``
-    and counts ``khipu_fused.unsupported_fallbacks``.
+    (trie/fused.py: kernel K5 on the card, one launch for every level)
+    instead of one hasher call per level; ``hasher`` is then unused.
     """
     device, hasher = resolve_hasher(hasher, device)
     # live placeholders: positive log entries with placeholder keys
@@ -257,28 +256,20 @@ def finalize(
     resolved: Dict[bytes, bytes] = {}  # placeholder -> real hash
     final_encoded: Dict[bytes, bytes] = {}  # real hash -> final rlp
     if fused and to_resolve:
-        from khipu_tpu_torch.trie.fused import (
-            FUSED_GAUGES,
-            FusedUnsupported,
-            fused_resolve,
-        )
+        from khipu_tpu_torch.trie.fused import fused_resolve
 
-        try:
-            resolved = fused_resolve(
-                to_resolve, deps, _PLACEHOLDER_PREFIX, device=device
-            )
-            # substitution is length-invariant, so the byte-level
-            # substitute over the RAW encoding equals the loop path's
-            # decode -> substitute -> re-encode
-            with _span("finalize.substitute"):
-                for ph, enc in to_resolve.items():
-                    final_encoded[resolved[ph]] = _substitute_bytes(
-                        enc, resolved
-                    )
-        except FusedUnsupported:
-            FUSED_GAUGES["unsupported_fallbacks"] += 1
-            resolved = {}
-    if not resolved and deps:
+        resolved = fused_resolve(
+            to_resolve, deps, _PLACEHOLDER_PREFIX, device=device
+        )
+        # substitution is length-invariant, so the byte-level
+        # substitute over the RAW encoding equals the loop path's
+        # decode -> substitute -> re-encode
+        with _span("finalize.substitute"):
+            for ph, enc in to_resolve.items():
+                final_encoded[resolved[ph]] = _substitute_bytes(
+                    enc, resolved
+                )
+    elif deps:
         from khipu_tpu_torch.trie.fused import topo_levels
 
         for level in topo_levels(deps):

@@ -1,29 +1,33 @@
-"""Fused window finalize: the whole placeholder DAG in one fixpoint.
+"""Fused window finalize: the whole placeholder DAG in one kernel.
 
 The level-synchronous finalize (deferred.finalize) issues one batched
 hash call per trie level. This module resolves every staged node of a
-window (or of a bulk build) with a FIXPOINT iteration instead:
+window (or of a bulk build) in one device program instead:
 
   1. The host packs every staged node's raw encoding (multi-rate padded)
      into per-rate-class u8 tensors and scans each encoding once for
      its placeholder spans -> substitution triples
-     (parent_row, byte_offset, child_index).
-  2. ``rounds`` times, on the device:
-         G = keccak(every row of every class)     # kernel K1, per class
-         enc[row, off:off+32] = G[child]          # kernel K2, per class
-     After k rounds every node within k levels of the leaves carries
-     its final digest, so ``rounds = depth`` resolves the DAG.
+     (parent_row, byte_offset, child_index), grouped by parent.
+  2. From the triples alone (vectorised numpy) it derives each row's
+     level: 0 for a row with no in-window child, else 1 + the largest
+     level of its in-window children; and the rows in (level, class)
+     order.
+  3. Level by level, on the device, each row is substituted
+     (``enc[row, off:off+32] = digest of child``, the child from this
+     window's digests or from the resolved-input tile ``ext``) and
+     hashed into ``digests[row]``. Every row is hashed once.
 
 Substitution is length-invariant (a placeholder is exactly 32 bytes,
 replaced by a 32-byte hash; RLP headers never change), so byte offsets
-recorded from the RAW encodings stay valid through every round.
+recorded from the RAW encodings are the offsets in the final ones.
 
-On the card K1 and K2 are the hand-written kernels; on the CPU the
-same loop runs the plain versions (``keccak_torch.absorb_padded`` and
-``_substitute_plain``). The JAX package pads rows and triples to
-compile-friendly buckets (1024-row tiles, pow-2 counts); the port
-compiles nothing per shape, so a class holds its real rows plus one
-spare filler row, and only real triples.
+On the card step 3 is kernel K5 (``fixpoint_cuda.resolve_levels``), one
+launch for all levels; on the CPU it is ``resolve_levels_plain``. The
+JAX package instead runs ``depth`` rounds of (hash every row,
+substitute every triple) and pads rows and triples to compile-friendly
+buckets (1024-row tiles, pow-2 counts); the port compiles nothing per
+shape, so a class holds its real rows plus one spare filler row, and
+only real triples.
 """
 
 from __future__ import annotations
@@ -35,28 +39,19 @@ import torch
 
 from khipu_tpu_torch.device import resolve_device
 from khipu_tpu_torch.observability import REGISTRY, span as _span
-from khipu_tpu_torch.ops.keccak import hash_padded
+from khipu_tpu_torch.ops import keccak_torch
 from khipu_tpu_torch.ops.keccak_torch import RATE
 from khipu_tpu_torch.trie import fixpoint_cuda
 
-MAX_DEPTH = 64  # DAG deeper than this falls back to the level loop
 ADMIT_TILE = 1024  # rows per mirror tile (admit gathers come in whole tiles)
 
 FUSED_GAUGES = REGISTRY.gauge_group("khipu_fused", {
     # fixpoints run (fused_submit calls that reached the device)
     "dispatches": 0,
-    # shape of the last fixpoint: staged nodes and rounds (= DAG depth)
+    # shape of the last fixpoint: staged nodes and levels (= DAG depth)
     "last_nodes": 0,
-    "last_rounds": 0,
-    # finalize(fused=True) windows that fell back to the level loop
-    # because the DAG was deeper than MAX_DEPTH
-    "unsupported_fallbacks": 0,
+    "last_levels": 0,
 }, help="fused fixpoint state (khipu_tpu_torch/trie/fused.py)")
-
-
-class FusedUnsupported(Exception):
-    """Raised when the fused path cannot handle this window (the caller
-    falls back to the per-level hasher loop)."""
 
 
 def topo_levels(deps: Dict[bytes, List[bytes]]) -> List[List[bytes]]:
@@ -86,50 +81,105 @@ def _pow2(n: int, floor: int = 1) -> int:
     return v
 
 
-def _substitute_plain(enc, rows, offs, child, digests, ext, total_rows):
-    """Plain version of K2: ``enc[row, off:off+32] = cat(G, ext)[child]``
-    for every triple, in place."""
-    gf = torch.cat([digests, ext], dim=0)
-    cols = offs.long()[:, None] + torch.arange(32, device=enc.device)
-    enc[rows.long()[:, None], cols] = gf[child.long()]
-
-
-def substitute(enc, rows, offs, child, digests, ext, total_rows) -> None:
-    """One class's substitution pass: K2 on the card, the plain version
-    on the CPU."""
-    if enc.is_cuda:
-        fixpoint_cuda.substitute(
-            enc, rows, offs, child, digests, ext, total_rows
-        )
-    elif enc.device.type == "cpu":
-        _substitute_plain(enc, rows, offs, child, digests, ext, total_rows)
-    else:
-        raise ValueError(f"unsupported device {enc.device}")
-
-
 class PackedClass:
     """One rate class of a packed window, on the device: ``enc``
-    u8[nrows, nb*136] (real rows, then one spare filler row), the
-    triples ``rows``/``offs``/``child`` i32[nsubs], and ``base``, the
-    class's first row in the window's digest tensor."""
+    u8[nrows, nb*136] (real rows, then one spare filler row) and
+    ``base``, the class's first row in the window's digest tensor."""
 
-    __slots__ = ("nb", "keys", "base", "enc", "rows", "offs", "child",
-                 "aidx", "admit_keys", "admit_lens")
+    __slots__ = ("nb", "keys", "base", "enc", "aidx", "admit_keys",
+                 "admit_lens")
 
     @property
     def nrows(self) -> int:
         return int(self.enc.shape[0])
 
+
+class LevelPlan:
+    """The level order of a packed window.
+
+    Host (numpy): ``level`` i32[total_rows], each row's height;
+    ``level_ptr`` i64[L + 1], level l's slice of ``order``; ``order``
+    i32[total_rows], the rows sorted by (level, row), so by class inside
+    a level; ``tptr`` i64[total_rows + 1], row r's triples are
+    ``[tptr[r], tptr[r + 1])``.
+    Device (i32 tensors): ``d_order``, ``d_level_ptr``, ``d_tptr`` and
+    the triples' byte offsets ``d_toff`` and children ``d_tchild``
+    (a child at or past total_rows is row ``child - total_rows`` of the
+    resolved-input tile)."""
+
+    __slots__ = ("level", "level_ptr", "order", "tptr", "toff", "tchild",
+                 "d_order", "d_level_ptr", "d_tptr", "d_toff", "d_tchild")
+
     @property
-    def nsubs(self) -> int:
-        return int(self.rows.shape[0])
+    def nlevels(self) -> int:
+        return len(self.level_ptr) - 1
+
+    @property
+    def ntriples(self) -> int:
+        return int(self.tptr[-1])
+
+    @property
+    def widest(self) -> int:
+        """Rows in the largest level."""
+        return int(np.diff(self.level_ptr).max())
+
+
+def level_plan(parent: np.ndarray, toff: np.ndarray, tchild: np.ndarray,
+               total_rows: int, device) -> LevelPlan:
+    """Levels, order and the CSR of the triples ``(parent, toff,
+    tchild)``, which must be sorted by parent. Vectorised: each pass of
+    ``np.maximum.reduceat`` over the parent-sorted triples raises every
+    row to 1 + its children's levels, and the levels stop changing after
+    depth + 1 passes. Raises AssertionError on a cycle."""
+    parent = np.asarray(parent, dtype=np.int64)
+    tchild = np.asarray(tchild, dtype=np.int64)
+    if len(parent) and np.any(np.diff(parent) < 0):
+        raise ValueError("triples must be sorted by parent")
+    if max(total_rows, len(parent)) >= 1 << 31:
+        raise ValueError("a window holds fewer than 2**31 rows and triples")
+    counts = np.bincount(parent, minlength=total_rows)
+    tptr = np.zeros(total_rows + 1, dtype=np.int64)
+    np.cumsum(counts, out=tptr[1:])
+    level = np.zeros(total_rows, dtype=np.int64)
+    inner = tchild < total_rows  # ext children are final from the start
+    if inner.any():
+        p_in, c_in = parent[inner], tchild[inner]
+        heads, starts = np.unique(p_in, return_index=True)
+        while True:
+            raised = np.maximum.reduceat(level[c_in], starts) + 1
+            if np.array_equal(raised, level[heads]):
+                break
+            level[heads] = raised
+            if raised.max() >= total_rows:
+                raise AssertionError("placeholder dependency cycle")
+    order = np.argsort(level, kind="stable").astype(np.int32)
+    level_ptr = np.zeros(int(level.max()) + 2, dtype=np.int64)
+    np.cumsum(np.bincount(level), out=level_ptr[1:])
+
+    plan = LevelPlan()
+    plan.level, plan.level_ptr, plan.order, plan.tptr = (
+        level.astype(np.int32), level_ptr, order, tptr
+    )
+    plan.toff = np.asarray(toff, dtype=np.int32)
+    plan.tchild = tchild.astype(np.int32)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+    plan.d_order, plan.d_level_ptr, plan.d_tptr = (
+        up(order), up(level_ptr), up(tptr)
+    )
+    plan.d_toff, plan.d_tchild = up(plan.toff), up(plan.tchild)
+    return plan
 
 
 def pack(to_resolve, prefix, device, ext_pos=None, n_ext=0,
-         admit_live=None) -> Tuple[List[PackedClass], Dict[bytes, int], int]:
+         admit_live=None
+         ) -> Tuple[List[PackedClass], Dict[bytes, int], int, LevelPlan]:
     """Host pack + upload: bucket the encodings by rate class, pad them,
-    scan each for the placeholder prefix and build the triples. Returns
-    (classes, dpos: ph -> global row, total_rows)."""
+    scan each for the placeholder prefix and build the triples and their
+    level plan. Returns (classes, dpos: ph -> global row, total_rows,
+    plan)."""
     buckets: Dict[int, List[bytes]] = {}
     for ph in to_resolve:
         buckets.setdefault(len(to_resolve[ph]) // RATE + 1, []).append(ph)
@@ -146,13 +196,14 @@ def pack(to_resolve, prefix, device, ext_pos=None, n_ext=0,
     total_rows = base
     ext_pos = ext_pos or {}
 
+    # (global parent row, offset, child), in row order: sorted by parent
+    subs: List[Tuple[int, int, int]] = []
     for c in classes:
         width = c.nb * RATE
         npad = len(c.keys) + 1
         zero = bytes(width)
         parts: List[bytes] = []
         lens = np.zeros(npad, dtype=np.int64)
-        subs: List[Tuple[int, int, int]] = []
         for r, ph in enumerate(c.keys):
             enc = to_resolve[ph]
             parts.append(enc)
@@ -169,7 +220,7 @@ def pack(to_resolve, prefix, device, ext_pos=None, n_ext=0,
                             raise ValueError(f"ext row {ep} outside [0, {n_ext})")
                         cp = total_rows + ep  # resolved-input tile row
                 if cp is not None:
-                    subs.append((r, pos, cp))
+                    subs.append((c.base + r, pos, cp))
                 pos = enc.find(prefix, pos + 32)
         parts.append(zero)  # the spare filler row
         buf = (
@@ -179,12 +230,7 @@ def pack(to_resolve, prefix, device, ext_pos=None, n_ext=0,
         )
         buf[np.arange(npad), lens] ^= 0x01  # multi-rate pad (a fixed
         buf[:, width - 1] ^= 0x80  # region: substitution never touches it)
-        sub_np = np.asarray(subs, dtype=np.int32).reshape(-1, 3)
         c.enc = torch.from_numpy(buf).to(device)
-        c.rows, c.offs, c.child = (
-            torch.from_numpy(np.ascontiguousarray(sub_np[:, i])).to(device)
-            for i in range(3)
-        )
         c.aidx, c.admit_keys, c.admit_lens = None, None, None
         if admit_live:
             live = [r for r, ph in enumerate(c.keys) if ph in admit_live]
@@ -198,29 +244,67 @@ def pack(to_resolve, prefix, device, ext_pos=None, n_ext=0,
                 pad = nadmit - len(live)
                 c.admit_keys = [c.keys[r] for r in live] + [None] * pad
                 c.admit_lens = [int(lens[r]) for r in live] + [0] * pad
-    return classes, dpos, total_rows
+    sub_np = np.asarray(subs, dtype=np.int64).reshape(-1, 3)
+    plan = level_plan(sub_np[:, 0], sub_np[:, 1], sub_np[:, 2], total_rows,
+                      device)
+    return classes, dpos, total_rows, plan
 
 
-def run_fixpoint(classes: List[PackedClass], total_rows: int,
-                 ext: torch.Tensor, rounds: int, hash_rows=hash_padded,
-                 scatter=substitute) -> torch.Tensor:
-    """``rounds`` rounds of (hash every class, then substitute every
-    class), in place into each class's ``enc``. Returns the digest
-    tensor u8[total_rows, 32] of the last round: with rounds >= depth
-    both it and the encodings are at the fixpoint.
-
-    ``hash_rows(enc, out=)`` and ``scatter`` default to the dispatchers
-    (K1 and K2 on the card); ``chip_smoke.py`` passes the plain versions
-    to hold the kernels against them on the same device."""
+def resolve_levels_plain(classes: List[PackedClass], total_rows: int,
+                         ext: torch.Tensor, plan: LevelPlan) -> torch.Tensor:
+    """Plain version of K5: for each level, for each class present in
+    it, write ``cat(digests, ext)[child]`` into ``enc[row, off:off+32]``
+    for the level's triples, then hash those rows into ``digests``.
+    In place into each class's ``enc``; returns the digest tensor
+    u8[total_rows, 32]. Each row is hashed once."""
     device = classes[0].enc.device
     digests = torch.empty((total_rows, 32), dtype=torch.uint8, device=device)
-    for _ in range(rounds):
-        for c in classes:
-            hash_rows(c.enc, out=digests[c.base : c.base + c.nrows])
-        for c in classes:
-            if c.nsubs:
-                scatter(c.enc, c.rows, c.offs, c.child, digests, ext,
-                        total_rows)
+    bounds = [c.base for c in classes] + [total_rows]
+    span32 = torch.arange(32, device=device)
+    for lvl in range(plan.nlevels):
+        rows_l = plan.order[plan.level_ptr[lvl] : plan.level_ptr[lvl + 1]]
+        src = torch.cat([digests, ext], dim=0)
+        cuts = np.searchsorted(rows_l, bounds)
+        for c, lo, hi in zip(classes, cuts[:-1], cuts[1:]):
+            if lo == hi:
+                continue
+            rows = rows_l[lo:hi].astype(np.int64)
+            starts = plan.tptr[rows]
+            counts = plan.tptr[rows + 1] - starts
+            # CSR expansion: the indices of every triple of these rows
+            first = np.repeat(starts - np.cumsum(counts) + counts, counts)
+            tidx = first + np.arange(int(counts.sum()))
+            local = torch.from_numpy(rows - c.base).to(device)
+            if len(tidx):
+                parents = torch.from_numpy(
+                    np.repeat(rows - c.base, counts)).to(device)
+                cols = torch.from_numpy(
+                    plan.toff[tidx].astype(np.int64)).to(device)
+                child = torch.from_numpy(
+                    plan.tchild[tidx].astype(np.int64)).to(device)
+                c.enc[parents[:, None], cols[:, None] + span32] = src[child]
+            digests[torch.from_numpy(rows).to(device)] = (
+                keccak_torch.absorb_padded(c.enc[local])
+            )
+    return digests
+
+
+def resolve_levels(classes: List[PackedClass], total_rows: int,
+                   ext: torch.Tensor, plan: LevelPlan) -> torch.Tensor:
+    """Resolve a packed window: K5 on the card (one launch), the plain
+    version on the CPU. Returns the digests u8[total_rows, 32]; the final
+    encodings are in each class's ``enc``."""
+    device = classes[0].enc.device
+    if device.type == "cpu":
+        return resolve_levels_plain(classes, total_rows, ext, plan)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    digests = torch.empty((total_rows, 32), dtype=torch.uint8, device=device)
+    fixpoint_cuda.resolve_levels(
+        [c.enc for c in classes], [c.base for c in classes], digests, ext,
+        plan.d_order, plan.d_level_ptr, plan.d_tptr, plan.d_toff,
+        plan.d_tchild, plan.widest,
+    )
     return digests
 
 
@@ -348,12 +432,12 @@ def fused_submit(
     real Keccak-256 hash for every entry of ``to_resolve`` (placeholder
     -> raw encoding); returns without waiting for the device.
 
-    ``deps`` is the child map (restricted to session placeholders);
-    ``prefix`` is the session's placeholder prefix for the offset scan.
-    Callers that know the DAG depth pass ``depth`` to skip the
-    topological scan. ``rounds = depth``: the least that resolves the
-    DAG (the JAX package rounds it up to a power of two, at least 4, for
-    its compile cache; any rounds >= depth gives the same real rows).
+    ``prefix`` is the session's placeholder prefix for the offset scan;
+    the DAG and its levels come from the triples that scan finds, so
+    ``deps`` (the child map the JAX package's fixpoint takes) is not
+    read. ``depth``, when a caller knows it, must be at least the number
+    of levels found: a smaller one raises ValueError. No depth is
+    compiled in: K5 walks every level in one launch.
 
     ``ext``: optional ``(digests, pos)`` resolved-input tile — a device
     u8[n, 32] tensor of FINAL digests from earlier windows and a
@@ -367,18 +451,14 @@ def fused_submit(
     dev = resolve_device(device)
     with _span("fused.dispatch"):
         return _fused_submit(
-            to_resolve, deps, prefix, dev, depth, ext, admit_live
+            to_resolve, prefix, dev, depth, ext, admit_live
         )
 
 
-def _fused_submit(to_resolve, deps, prefix, dev, depth, ext,
+def _fused_submit(to_resolve, prefix, dev, depth, ext,
                   admit_live) -> FusedJob:
     if not to_resolve:
         return FusedJob(None, [])
-    if depth is None:
-        depth = len(topo_levels(deps))
-    if depth > MAX_DEPTH:
-        raise FusedUnsupported(f"DAG depth {depth} > {MAX_DEPTH}")
     if ext is not None:
         ext_dev, ext_pos = ext
         if ext_dev.device != dev or ext_dev.dtype != torch.uint8:
@@ -388,16 +468,17 @@ def _fused_submit(to_resolve, deps, prefix, dev, depth, ext,
         ext_pos = {}
 
     with _span("seal.dispatch_build"):
-        classes, dpos, total_rows = pack(
+        classes, dpos, total_rows, plan = pack(
             to_resolve, prefix, dev, ext_pos, int(ext_dev.shape[0]),
             admit_live,
         )
-    rounds = max(1, depth)
+    if depth is not None and depth < plan.nlevels:
+        raise ValueError(f"depth {depth} < the DAG's {plan.nlevels} levels")
     with _span("seal.upload"):
-        digests = run_fixpoint(classes, total_rows, ext_dev, rounds)
+        digests = resolve_levels(classes, total_rows, ext_dev, plan)
     FUSED_GAUGES["dispatches"] += 1
     FUSED_GAUGES["last_nodes"] = len(to_resolve)
-    FUSED_GAUGES["last_rounds"] = rounds
+    FUSED_GAUGES["last_levels"] = plan.nlevels
 
     admit_tiles = None
     if admit_live:

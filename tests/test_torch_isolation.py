@@ -101,10 +101,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     rows = torch.zeros((2, 136), dtype=torch.uint8)
     with pytest.raises(ValueError):
         keccak_cuda.absorb_padded(rows)
-    i32 = torch.zeros(1, dtype=torch.int32)
-    d = torch.zeros((1, 32), dtype=torch.uint8)
+    i32 = torch.zeros(2, dtype=torch.int32)
+    d = torch.zeros((2, 32), dtype=torch.uint8)
     with pytest.raises(ValueError):
-        fixpoint_cuda.substitute(rows, i32, i32, i32, d, d, 1)
+        fixpoint_cuda.resolve_levels([rows], [0], d, d, i32, i32,
+                                     torch.zeros(3, dtype=torch.int32),
+                                     i32, i32, 2)
     with pytest.raises(ValueError):
         keccak_cuda.absorb_fixed(torch.zeros((2, 20), dtype=torch.uint8))
     planes = torch.zeros((34, 4), dtype=torch.int32)
@@ -113,6 +115,25 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         mirror_cuda.hash_planes(planes, 1, 34, out)
     with pytest.raises(ValueError):
         mirror_cuda.verify_planes(planes, out, 1, 34)
+
+
+def test_k5_wrapper_refuses_cpu_tensors():
+    """A packed window on the CPU: K5's wrapper raises on its tensors and
+    launches nothing, while the dispatcher takes the plain version."""
+    to_resolve = {bytes([i]) * 32: bytes([i]) * 40 for i in range(3)}
+    classes, _, total, plan = fused.pack(to_resolve, b"\xfe\xc0", "cpu")
+    ext = torch.zeros((0, 32), dtype=torch.uint8)
+    digests = torch.zeros((total, 32), dtype=torch.uint8)
+    before = fixpoint_cuda.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        fixpoint_cuda.resolve_levels(
+            [c.enc for c in classes], [c.base for c in classes], digests,
+            ext, plan.d_order, plan.d_level_ptr, plan.d_tptr, plan.d_toff,
+            plan.d_tchild, plan.widest,
+        )
+    got = fused.resolve_levels(classes, total, ext, plan)
+    assert fixpoint_cuda.LAUNCHES == before
+    assert got.device.type == "cpu" and got.shape == (total, 32)
 
 
 def test_build_sees_both_kernel_sources():

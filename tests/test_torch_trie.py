@@ -1,6 +1,6 @@
 """The port's state-root pipeline (khipu_tpu_torch.trie) against the JAX
-package, on the CPU: bulk build, the fused fixpoint (plain versions of
-K1 and K2), and a windowed deferred-commit session over a state the JAX
+package, on the CPU: bulk build, the fused fixpoint (the plain version
+of K5), and a windowed deferred-commit session over a state the JAX
 package built. Placeholder prefixes are random per process and per
 package, so sessions are compared by real digests, roots and node
 dicts; only the fixpoint tests feed one package's placeholders to both.
@@ -22,6 +22,7 @@ from khipu_tpu.trie import deferred as ref_deferred
 from khipu_tpu.trie import fused as ref_fused
 from khipu_tpu.trie.mpt import MerklePatriciaTrie as RefMPT
 from khipu_tpu_torch.domain.account import Account, address_key
+from khipu_tpu_torch.ops import keccak_torch
 from khipu_tpu_torch.ops.keccak import keccak256_fixed
 from khipu_tpu_torch.state import load_reference_nodes
 from khipu_tpu_torch.trie import bulk, deferred, fused
@@ -202,15 +203,25 @@ def test_fused_submit_ext_and_admit_matches_reference():
 
 
 def test_substitute_plain_reads_ext_past_total_rows():
-    enc = torch.zeros((3, 136), dtype=torch.uint8)
-    digests = torch.arange(2 * 32, dtype=torch.uint8).reshape(2, 32)
-    ext = torch.full((1, 32), 0xEE, dtype=torch.uint8)
-    i32 = functools.partial(torch.tensor, dtype=torch.int32)
-    fused.substitute(enc, i32([0, 2]), i32([5, 100]), i32([1, 2]),
-                     digests, ext, 2)
-    assert enc[0, 5:37].tolist() == list(range(32, 64))
-    assert enc[2, 100:132].tolist() == [0xEE] * 32
-    assert int(enc.sum()) == sum(range(32, 64)) + 0xEE * 32
+    """resolve_levels_plain: a child at or past total_rows reads the
+    resolved-input tile, one below it reads this window's digest, and
+    each row is hashed after its substitution."""
+    rng = np.random.default_rng(11)
+    raw = torch.from_numpy(rng.integers(0, 256, (3, 136), dtype=np.uint8))
+    c = fused.PackedClass()
+    c.nb, c.keys, c.base, c.enc = 1, [], 0, raw.clone()
+    ext = torch.full((2, 32), 0xEE, dtype=torch.uint8)
+    ext[1] = 0xAB
+    # row 0 <- row 1's digest at byte 5; row 2 <- ext row 1 at byte 100
+    plan = fused.level_plan(np.array([0, 2]), np.array([5, 100]),
+                            np.array([1, 3 + 1]), 3, "cpu")
+    assert plan.level.tolist() == [1, 0, 0]
+    digests = fused.resolve_levels_plain([c], 3, ext, plan)
+    want = raw.clone()
+    want[2, 100:132] = 0xAB
+    want[0, 5:37] = keccak_torch.absorb_padded(want[1:2])[0]
+    assert torch.equal(c.enc, want)
+    assert torch.equal(digests, keccak_torch.absorb_padded(want))
 
 
 def _block_writes(rng, keys, balances, n_new, block):
@@ -290,25 +301,98 @@ def test_window_session_matches_reference():
         assert reopened.get(k) == v
 
 
-def test_deep_dag_falls_back_to_level_loop(monkeypatch):
-    """Past MAX_DEPTH, finalize(fused=True) runs the level loop with the
-    default hasher on the same device and counts the fallback."""
-    src = load_reference_nodes({})
-    d = deferred.DeferredMPT(src)
-    for i in range(40):
-        d = d.put(address_key(bytes([i])), b"v" * 40)
+def test_deep_dag_fused_matches_reference():
+    """Keys that share ever longer nibble prefixes give a DAG of more
+    than 12 levels; finalize(fused=True) resolves it in one pass of
+    levels, with root and changes() equal to the JAX package's
+    bulk_build and finalize."""
+    keys = [bytes(i) + b"\x11" + bytes(31 - i) for i in range(12)]
+    pairs = [(k, b"v" * 40 + bytes([i]))
+             for i, k in enumerate(keys + [bytes(32)])]
+    d = deferred.DeferredMPT(load_reference_nodes({}))
+    ref_d = ref_deferred.DeferredMPT(RefSource())
+    for k, v in pairs:
+        d, ref_d = d.put(k, v), ref_d.put(k, v)
     d.force_hashed_root()
-    monkeypatch.setattr(fused, "MAX_DEPTH", 1)
-    before = fused.FUSED_GAUGES["unsupported_fallbacks"]
-    trie, mapping = deferred.finalize(
-        d, return_mapping=True, fused=True, device="cpu"
+    ref_d.force_hashed_root()
+    trie = deferred.finalize(d, fused=True, device="cpu")
+    assert fused.FUSED_GAUGES["last_levels"] >= 12
+    ref_trie = ref_deferred.finalize(ref_d, ref_bulk.host_hasher)
+    want, _ = ref_bulk.bulk_build(pairs, hasher=ref_bulk.host_hasher)
+    assert trie.root_hash == ref_trie.root_hash == want
+    assert trie.changes() == ref_trie.changes()
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_window(blocks=16):
+    """A JAX-package session of ``blocks`` blocks x 50 account writes
+    over a 300-account state, each block's root forced: the per-block
+    roots share subtrees, so children have several parents."""
+    base_pairs = [
+        (address_key(i.to_bytes(20, "big")), Account(0, 10**18 + i).encode())
+        for i in range(300)
+    ]
+    root, nodes = ref_bulk.bulk_build(base_pairs, hasher=ref_bulk.host_hasher)
+    src = RefSource()
+    src.update([], nodes)
+    rng = np.random.default_rng(13)
+    keys = [k for k, _ in base_pairs]
+    balances = {k: (0, 10**18 + i) for i, k in enumerate(keys)}
+    d = ref_deferred.DeferredMPT(src, root_hash=root)
+    roots = []
+    for b in range(blocks):
+        for k, v in _block_writes(rng, keys, balances, 5, b).items():
+            d = d.put(k, v)
+        roots.append(d.force_hashed_root())
+    return d, roots
+
+
+def test_pack_levels_match_topo_levels():
+    """pack's vectorised levels equal topo_levels(deps) row for row on a
+    16-block window DAG; spare filler rows are level 0; the order is
+    sorted by (level, class); a depth below the levels raises."""
+    session, _ = _ref_window()
+    to_resolve, deps, _ = ref_deferred.resolution_inputs(session)
+    prefix = ref_deferred._PLACEHOLDER_PREFIX
+    classes, dpos, total, plan = fused.pack(to_resolve, prefix, "cpu")
+    topo = fused.topo_levels(deps)
+    assert plan.nlevels == len(topo) >= 4
+    fillers = {c.base + len(c.keys) for c in classes}
+    for lvl, phs in enumerate(topo):
+        rows = set(np.flatnonzero(plan.level == lvl).tolist()) - fillers
+        assert rows == {dpos[ph] for ph in phs}
+    assert all(plan.level[r] == 0 for r in fillers)
+    by_level = plan.level[plan.order]
+    assert np.all(np.diff(by_level) >= 0)
+    for lvl in range(plan.nlevels):
+        rows = plan.order[plan.level_ptr[lvl] : plan.level_ptr[lvl + 1]]
+        assert np.all(np.diff(rows) > 0)  # rows ascend, so classes do
+    with pytest.raises(ValueError, match="levels"):
+        fused.fused_submit(to_resolve, deps, prefix, device="cpu",
+                           depth=plan.nlevels - 1)
+
+
+def test_multi_parent_children_match_reference():
+    """The per-block roots of a 16-block window share subtrees (children
+    with several parents): final encodings and digests byte-equal to
+    the JAX package's fused_submit and to its level-loop finalize."""
+    session, roots = _ref_window()
+    to_resolve, deps, _ = ref_deferred.resolution_inputs(session)
+    parents = {}
+    for ph, cs in deps.items():
+        for ch in cs:
+            parents[ch] = parents.get(ch, 0) + 1
+    assert max(parents.values()) > 1
+    prefix = ref_deferred._PLACEHOLDER_PREFIX
+    ref_job = ref_fused.fused_submit(to_resolve, deps, prefix, use_jnp=True)
+    job = fused.fused_submit(to_resolve, deps, prefix, device="cpu")
+    _, truth = ref_deferred.finalize(
+        session, ref_bulk.host_hasher, return_mapping=True
     )
-    assert fused.FUSED_GAUGES["unsupported_fallbacks"] == before + 1
-    want, _ = ref_bulk.bulk_build(
-        [(address_key(bytes([i])), b"v" * 40) for i in range(40)],
-        hasher=ref_bulk.host_hasher,
-    )
-    assert trie.root_hash == want
+    got = job.collect()
+    assert got == ref_job.collect() == {ph: truth[ph] for ph in to_resolve}
+    assert [got[r] for r in roots] == [truth[r] for r in roots]
+    assert _rows_by_key(job) == _rows_by_key(ref_job)
 
 
 def test_eager_mpt_and_batch_commit_match_reference():
