@@ -3,20 +3,26 @@
 
     python3 chip_smoke.py [--seed N]
 
-Builds kernels K1 (Keccak sponge), K1f (the sponge with the pad fused),
-K5 (the level-ordered fixpoint: substitute and hash every staged node
-once, all levels in one launch), K3 (mirror hash) and K4 (mirror
+Builds kernels K1r (the Keccak sponge over a ragged batch, the pad in
+registers; row mode and column mode), K1f (rows of one length, the pad
+fused), K5 (the level-ordered fixpoint: substitute and hash every staged
+node once, all levels in one launch), K3 (mirror hash) and K4 (mirror
 verify) from the repository's CUDA sources, holds each against its plain
 PyTorch version on the card, then drives the port through the entry
 points a user calls:
 
   1. build every kernel with nvcc, one process per source
-  2. K1 vs the plain sponge: rate-class edges, 1,048,576 x 576 B, and a
-     mixed-length ``keccak256_batch`` in input order; K1 timed also at
-     fast sync's 100-row batches
-  2b. K1f (``keccak256_device_fixed``) vs K1 over the same 1,048,576 x
-     576 B rows padded on the card, and vs the plain version (and the
-     scalar oracle on sampled rows) at the pad's edge lengths
+  2. K1r in each mode vs its plain version (``absorb_ragged``) and the
+     scalar oracle: the pad's and rate classes' edges, a 5,000-row mixed
+     batch with 2,048 B rows (and ``keccak256_batch`` on it in input
+     order), 1,048,576 x 576 B (also vs K1f); timed at 1M x 576 beside
+     K1f, and at fast sync's 100-row batches (1, 4, 16 and mixed 1/4
+     rate blocks) in both modes beside the design it replaced (one
+     row-mode launch per rate class after host padding): kernel-only
+     from the profiler and launch-inclusive from CUDA events
+  2b. K1f (``keccak256_device_fixed``) vs K1r over the same 1,048,576 x
+     576 B rows, and vs the plain version (and the scalar oracle on
+     sampled rows) at the pad's edge lengths
   3. K5 vs its plain version on the card: ``fused_submit`` of a
      6-root session (children with several parents) with a
      resolved-input (ext) tile and mirror admit rows, against
@@ -28,10 +34,10 @@ points a user calls:
   6. a window of 16 blocks x 400 account writes in one ``DeferredMPT``
      session, ``finalize(fused=True)``: every per-block root and the
      persisted node set equal the level loop with the plain hasher
-  7. launch counts of phases 4-6 (K5 three times, K1 never), K5 timed
+  7. launch counts of phases 4-6 (K5 three times, K1r never), K5 timed
      at the 100k trie's and the window's shapes beside its plain
-     version and K1 run over every row once per level (the design K5
-     replaced)
+     version and K1r's row mode run over every row once per level (the
+     design K5 replaced)
   8. mirror_verify (BASELINE config #5 on one card): 10,485,760 x 576 B
      nodes generated on the card, claims by K1f, ``admit_packed(...,
      exact=True)``, ``verify()`` == 0 and exactly 1 for each negative
@@ -39,7 +45,8 @@ points a user calls:
   9. fast_sync: ``StateSyncer`` downloads the 100,000-account state with
      1,000 contracts (storage trie + 2,048 B code each) into fresh
      ``Storages`` with a ``DeviceNodeMirror``, one corrupt delivery
-     retried; stores byte-equal, mirror verify 0, nothing unreachable
+     retried; stores byte-equal, mirror verify 0, nothing unreachable;
+     K1r launched once per content check (``fastsync.verify`` span)
  10. window_admit: phase 6's window through ``fused_submit(admit_live=)``,
      its admit tiles landed with ``admit_device`` and ``rekey``ed;
      ``verify()`` == 0 and ``spill_rows`` equal the persisted nodes
@@ -67,7 +74,14 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GENESIS_ROOT = "d7f8974fb5ac78d9ac099b9ad5018bedc2ce0a72dad1827a1709da30580f0544"
-EDGES = (0, 1, 31, 32, 135, 136, 137, 271, 272, 543, 544, 576)
+# rate-class edges: 0..5 rate blocks and 16 (a 2,048 B code blob), both
+# sides of each boundary
+K1R_EDGES = (0, 1, 31, 32, 135, 136, 137, 271, 272, 407, 408, 543, 544,
+             576, 2048)
+# fast sync's batches: 100 rows of leaves (1 rate block), full branches
+# (4), code blobs (16), and leaves and branches mixed
+BATCH100 = {"100x1": [1] * 100, "100x4": [4] * 100, "100x16": [16] * 100,
+            "100x1+4": [1, 4] * 50}
 
 # Bounds (the least time the card could take for the same work), from the
 # H100 SXM's published figures at its 700 W limit:
@@ -79,7 +93,14 @@ H100_INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # folding: theta 80 (column parities 20, D rotations 10, state update
 # 50), rho 48 funnel shifts, chi 50 LOP3s, iota 2 -> 180 per round, 24
 # rounds; absorbing a 136-byte block adds 34 XORs.
-K1_OPS_PER_BLOCK = 180 * 24 + 34
+SPONGE_OPS_PER_BLOCK = 180 * 24 + 34
+# The latency floor of one permutation, which a batch too small to fill
+# the card cannot go under: each round's dependent chain is 7 integer
+# operations (theta's parity in 2 LOP3s, its D as a funnel shift and an
+# XOR, the XOR into the lane, rho's funnel shift, chi's LOP3; iota folds
+# into the next), at 4 cycles each before a result can be used (an
+# assumed Hopper ALU latency, not measured here), at 1.98 GHz.
+PERM_CHAIN_S = 24 * 7 * 4 / 1.98e9
 K1F_EDGES = (0, 1, 20, 32, 135, 136, 137, 271, 272)
 
 
@@ -139,14 +160,80 @@ def cuda_ms_median(torch, fn, reps: int, warmup: bool = True) -> float:
 def sponge_bound_ms(n_rows: int, nblocks: int, bytes_moved: int) -> tuple:
     """The least time for ``n_rows`` sponges of ``nblocks`` rate blocks
     that read and write ``bytes_moved`` bytes in all."""
-    ops_s = n_rows * nblocks * K1_OPS_PER_BLOCK / H100_INT32_OPS_PER_S
+    ops_s = n_rows * nblocks * SPONGE_OPS_PER_BLOCK / H100_INT32_OPS_PER_S
     bytes_s = bytes_moved / H100_BYTES_PER_S
     return (max(ops_s, bytes_s) * 1e3,
             "operations" if ops_s >= bytes_s else "bytes")
 
 
-def k1_bound_ms(n_rows: int, nblocks: int) -> tuple:
-    return sponge_bound_ms(n_rows, nblocks, n_rows * (nblocks * 136 + 32))
+def kernel_us(torch, fn, reps: int, match: str) -> tuple:
+    """(launches per run, mean device microseconds per launch) of the
+    kernels whose name holds ``match``, over ``reps`` runs of ``fn``
+    under ``torch.profiler`` after one warm-up run: the kernels' own
+    durations, without the host's launch gaps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if match in e.key]
+    count = sum(e.count for e in events)
+    check(count > 0, f"no kernel named *{match}* in the profile")
+    return count // reps, sum(e.self_device_time_total for e in events) / count
+
+
+def ptxas_by_kernel(log) -> dict:
+    """Kernel name -> its registers and spills, from ``-Xptxas -v``."""
+    import re
+
+    out, name = {}, None
+    for line in (ln for entry in log for ln in entry.splitlines()):
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            found = re.search(r"\d((?:keccak|mirror|fixpoint)\w*?_kernel)",
+                              mangled)
+            name = found.group(1) if found else mangled
+            if "ILb1E" in mangled:
+                name += "<words>"
+            elif "ILb0E" in mangled:
+                name += "<bytes>"
+        elif name and ("spill" in line or "registers" in line):
+            out[name] = f"{out.get(name, '')} {line.split(':', 1)[-1].strip()}".strip()
+    return out
+
+
+def per_class_rows(torch, np, build, keccak_torch, msgs, dev) -> list:
+    """The design K1r replaced, for timing it: bucket by rate class, pad
+    each class on the host, then per class one upload (header and padded
+    rows together), one K1r row-mode launch (reading each row's message
+    bytes, as K1 read the padded row) and one copy back. Returns the
+    digests in input order."""
+    buckets = {}
+    for i, m in enumerate(msgs):
+        buckets.setdefault(len(m) // 136 + 1, []).append(i)
+    out = [b""] * len(msgs)
+    lib = build.load()
+    for nb, idxs in sorted(buckets.items()):
+        group = [msgs[i] for i in idxs]
+        k, width = len(group), nb * 136
+        rows = keccak_torch.pad_to_words(group, nb).view(np.uint8)
+        header = np.concatenate([np.arange(k, dtype=np.int32) * width,
+                                 np.fromiter(map(len, group), np.int32, k)])
+        staged = torch.from_numpy(np.concatenate(
+            [header.view(np.uint8), rows.reshape(-1)])).to(dev)
+        got = torch.empty((k, 32), dtype=torch.uint8, device=dev)
+        dev_index, stream = build.launch_args(staged)
+        rc = lib.khipu_keccak256_ragged(staged.data_ptr() + 8 * k,
+                                        staged.data_ptr(), got.data_ptr(), k,
+                                        0, dev_index, stream)
+        check(rc == 0, f"K1r launch failed: cudaError {rc}")
+        raw = got.cpu().numpy().tobytes()
+        for j, i in enumerate(idxs):
+            out[i] = raw[32 * j : 32 * j + 32]
+    return out
 
 
 def hold_class(torch, device_mirror, mirror_cuda, cm, ncols, rng) -> tuple:
@@ -214,7 +301,7 @@ class Launches:
 
     def __init__(self, keccak_cuda, fixpoint_cuda, mirror_cuda):
         self.fields = (
-            ("k1", keccak_cuda, "LAUNCHES"),
+            ("k1r", keccak_cuda, "RAGGED_LAUNCHES"),
             ("k1f", keccak_cuda, "FIXED_LAUNCHES"),
             ("k5", fixpoint_cuda, "LAUNCHES"),
             ("k3", mirror_cuda, "HASH_LAUNCHES"),
@@ -285,82 +372,147 @@ def main() -> int:
     build.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": [str(p.relative_to(ROOT)) for p in build.sources()],
-          "ptxas": [ln.strip() for entry in build.BUILD_LOG
-                    for ln in entry.splitlines() if "registers" in ln]})
+          "ptxas": ptxas_by_kernel(build.BUILD_LOG)})
 
-    # 2. K1 against the plain sponge --------------------------------------
+    # 2. K1r against its plain version and the scalar oracle -------------
+    def packed(msgs):
+        blob, offsets, lengths = keccak_torch.pack_ragged(msgs)
+        return torch.from_numpy(blob).to(dev), offsets, lengths
+
+    def hold_ragged(blob, offsets, lengths, label, oracle) -> int:
+        """K1r in each mode == ``absorb_ragged`` on the card, and == the
+        scalar oracle on the rows ``oracle`` maps to their messages."""
+        plain = keccak_torch.absorb_ragged(blob, torch.from_numpy(offsets),
+                                           torch.from_numpy(lengths))
+        err = 0
+        for mode in ("row", "column"):
+            got = keccak_cuda.absorb_ragged(blob, offsets, lengths, mode=mode)
+            torch.cuda.synchronize()
+            err = max(err, int((got.int() - plain.int()).abs().max()))
+            check(torch.equal(got, plain), f"K1r {mode} != plain ({label})")
+            rows = {i: got[i].cpu().numpy().tobytes() for i in oracle}
+            check(all(rows[i] == keccak256_py(m) for i, m in oracle.items()),
+                  f"K1r {mode} != scalar oracle ({label})")
+        return err
+
     edge_msgs = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
-                 for n in EDGES]
-    for nb in sorted({len(m) // 136 + 1 for m in edge_msgs}):
-        group = [m for m in edge_msgs if len(m) // 136 + 1 == nb]
-        rows = torch.from_numpy(
-            keccak_torch.pad_to_words(group, nb).view(np.uint8).copy()
-        ).to(dev)
-        got = keccak_cuda.absorb_padded(rows)
-        check(torch.equal(got, keccak_torch.absorb_padded(rows)),
-              f"K1 != plain at {nb} blocks")
-        check([got[i].cpu().numpy().tobytes() for i in range(len(group))]
-              == [keccak256_py(m) for m in group],
-              f"K1 != scalar oracle at {nb} blocks")
+                 for n in K1R_EDGES]
+    k1r_err = hold_ragged(*packed(edge_msgs), "edges",
+                          dict(enumerate(edge_msgs)))
+    lens = rng.integers(0, 600, 5000)
+    lens[::250] = 2048
+    mixed = [rng.integers(0, 256, int(n), dtype=np.uint8).tobytes()
+             for n in lens]
+    k1r_err = max(k1r_err, hold_ragged(
+        *packed(mixed), "mixed", {i: mixed[i] for i in range(0, 5000, 97)}))
+    got = keccak256_batch(mixed, device=dev)
+    check(got == plain_hasher(mixed), "keccak256_batch != plain (mixed)")
+    check(all(got[i] == keccak256_py(mixed[i]) for i in range(0, 5000, 97)),
+          "keccak256_batch != scalar oracle (mixed)")
 
     n_msg, length = args.messages, 576
     nblocks = length // 136 + 1
     data = torch.randint(0, 256, (n_msg, length), dtype=torch.uint8,
                          device=dev, generator=gen)
-    padded = torch.zeros((n_msg, nblocks * 136), dtype=torch.uint8, device=dev)
-    padded[:, :length] = data
-    padded[:, length] ^= 0x01
-    padded[:, -1] ^= 0x80
-    del data
-    k1_out = keccak_cuda.absorb_padded(padded)
-    plain_out = keccak_torch.absorb_padded(padded)
+    flat = data.view(-1)
+    big_offsets = np.arange(n_msg, dtype=np.int32) * length
+    big_lengths = np.full(n_msg, length, np.int32)
+    oracle = {i: data[i].cpu().numpy().tobytes()
+              for i in (0, 1, n_msg // 2, n_msg - 1)}
+    k1r_err = max(k1r_err, hold_ragged(flat, big_offsets, big_lengths,
+                                       "1M x 576", oracle))
+    k1f_out = keccak_cuda.absorb_fixed(data)
+    big = {m: keccak_cuda.absorb_ragged(flat, big_offsets, big_lengths,
+                                        mode=m) for m in ("row", "column")}
     torch.cuda.synchronize()
-    k1_err = int((k1_out.int() - plain_out.int()).abs().max())
-    check(k1_err == 0 and torch.equal(k1_out, plain_out),
-          "K1 != plain at 1M x 576")
-    for i in (0, 1, n_msg // 2, n_msg - 1):
-        check(k1_out[i].cpu().numpy().tobytes()
-              == keccak256_py(padded[i, :length].cpu().numpy().tobytes()),
-              f"K1 != scalar oracle at row {i}")
-    k1_ms = cuda_ms(torch, lambda: keccak_cuda.absorb_padded(padded, k1_out), 10)
-    k1_plain_ms = cuda_ms(torch, lambda: keccak_torch.absorb_padded(padded), 2)
-    k1_bound, k1_bound_by = k1_bound_ms(n_msg, nblocks)
-    del padded, plain_out, k1_out
-    # fast sync's content check launches K1 once per rate class of each
-    # 100-node batch: leaves are 1 rate block, full branches 4
-    k1_batch100 = {}
-    for nb in (1, 4):
-        rows = torch.randint(0, 256, (100, nb * 136), dtype=torch.uint8,
-                             device=dev, generator=gen)
-        out = keccak_cuda.absorb_padded(rows)
-        check(torch.equal(out, keccak_torch.absorb_padded(rows)),
-              f"K1 != plain at 100 x {nb} blocks")
-        bound, bound_by = k1_bound_ms(100, nb)
-        k1_batch100[f"{nb}_blocks"] = {
-            "ms": cuda_ms(torch, lambda: keccak_cuda.absorb_padded(rows, out),
-                          200),
-            "bound_ms": bound, "bound_by": bound_by}
+    check(all(torch.equal(o, k1f_out) for o in big.values()),
+          "K1r != K1f at 1M x 576")
+    # kernel-only times in turns: each mode of K1r beside K1f on the rows
+    big_runs = {
+        "row": (lambda: keccak_cuda.absorb_ragged(
+            flat, big_offsets, big_lengths, big["row"], mode="row"),
+            "ragged", 10),
+        "column": (lambda: keccak_cuda.absorb_ragged(
+            flat, big_offsets, big_lengths, big["column"], mode="column"),
+            "ragged", 3),
+        "k1f": (lambda: keccak_cuda.absorb_fixed(data, k1f_out), "fixed", 10),
+    }
+    big_us = {m: [] for m in big_runs}
+    for rnd in range(3):
+        for m in list(big_runs)[rnd:] + list(big_runs)[:rnd]:
+            fn, match, reps = big_runs[m]
+            big_us[m].append(kernel_us(torch, fn, reps, match)[1])
+    big_ms = {m: sorted(t)[1] / 1e3 for m, t in big_us.items()}
+    big_plain_ms = cuda_ms(torch, lambda: keccak_torch.absorb_ragged(
+        flat, torch.from_numpy(big_offsets), torch.from_numpy(big_lengths)), 1)
+    # bytes: the rows, 8 header bytes and 32 digest bytes a row
+    big_bound, big_bound_by = sponge_bound_ms(
+        n_msg, nblocks, n_msg * (length + 8 + 32))
+    del big, k1f_out
 
-    lens = rng.integers(0, 600, 5000)
-    mixed = [rng.integers(0, 256, int(n), dtype=np.uint8).tobytes()
-             for n in lens]
-    got = keccak256_batch(mixed, device=dev)
-    check(got == plain_hasher(mixed), "keccak256_batch != plain (mixed)")
-    check(all(got[i] == keccak256_py(mixed[i]) for i in range(0, 5000, 97)),
-          "keccak256_batch != scalar oracle (mixed)")
-    emit({"phase": "k1", "messages": n_msg, "bytes": length,
-          "k1_ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-          "hashes_per_s": n_msg / (k1_ms / 1e3), "max_abs_err": k1_err,
-          "mixed_batch": len(mixed), "batch100": k1_batch100})
+    # fast sync's 100-row batches: both modes and the per-class design
+    batch100 = {}
+    for shape, nbs in BATCH100.items():
+        msgs = [rng.integers(0, 256, 136 * nb - 1 - int(rng.integers(0, 100)),
+                             dtype=np.uint8).tobytes() for nb in nbs]
+        blob, offsets, lengths = packed(msgs)
+        k1r_err = max(k1r_err, hold_ragged(blob, offsets, lengths, shape,
+                                           dict(enumerate(msgs))))
+        out = torch.empty((len(msgs), 32), dtype=torch.uint8, device=dev)
+        check(per_class_rows(torch, np, build, keccak_torch, msgs, dev)
+              == [keccak256_py(m) for m in msgs],
+              f"per-class design != scalar oracle ({shape})")
+        runs = {
+            "column": lambda: keccak_cuda.absorb_ragged(
+                blob, offsets, lengths, out, mode="column"),
+            "row": lambda: keccak_cuda.absorb_ragged(
+                blob, offsets, lengths, out, mode="row"),
+            "per_class": lambda: per_class_rows(
+                torch, np, build, keccak_torch, msgs, dev),
+        }
+        kernel = {m: [] for m in runs}
+        for rnd in range(3):
+            for m in list(runs)[rnd:] + list(runs)[:rnd]:
+                per_run, us = kernel_us(torch, runs[m], 200, "ragged")
+                kernel[m].append(per_run * us)
+        row = {f"{m}_kernel_us": sorted(t)[1] for m, t in kernel.items()}
+        for m, fn in runs.items():
+            row[f"{m}_call_us"] = cuda_ms(torch, fn, 200) * 1e3
+        # host time a batch, digests back on the host: the content
+        # check's path (keccak256_batch) and the design it replaced
+        for m, fn in (("batch", lambda: keccak256_batch(msgs, dev)),
+                      ("per_class", runs["per_class"])):
+            fn()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            row[f"{m}_host_us"] = (time.perf_counter() - t0) / 200 * 1e6
+        row["plain_us"] = cuda_ms(torch, lambda: keccak_torch.absorb_ragged(
+            blob, torch.from_numpy(offsets), torch.from_numpy(lengths)), 2) * 1e3
+        ops_s = sum(nbs) * SPONGE_OPS_PER_BLOCK / H100_INT32_OPS_PER_S
+        bytes_s = (blob.numel() + 40 * len(msgs)) / H100_BYTES_PER_S
+        row.update({"bound_us": max(ops_s, bytes_s) * 1e6,
+                    "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+                    "latency_floor_us": max(nbs) * PERM_CHAIN_S * 1e6,
+                    "rate_blocks": sum(nbs),
+                    "per_class_launches": len(set(nbs))})
+        batch100[shape] = row
+    emit({"phase": "k1r", "modes": ["row", "column"],
+          "column_max_rows": keccak_cuda.COLUMN_MAX_ROWS,
+          "edge_lengths": list(K1R_EDGES), "mixed_batch": len(mixed),
+          "messages": n_msg, "bytes": length, "kernel_ms_1Mx576": big_ms,
+          "row_vs_k1f": big_ms["row"] / big_ms["k1f"],
+          "plain_ms_1Mx576": big_plain_ms, "bound_ms_1Mx576": big_bound,
+          "bound_by_1Mx576": big_bound_by, "batch100": batch100,
+          "max_abs_err": k1r_err})
 
-    # 2b. K1f against K1 and the plain version -----------------------------
-    data = torch.randint(0, 256, (n_msg, length), dtype=torch.uint8,
-                         device=dev, generator=gen)
+    # 2b. K1f against K1r and the plain version ----------------------------
     k1f_out = keccak256_device_fixed(data, device=dev)
-    k1_out = keccak_cuda.absorb_padded(keccak_torch.pad_fixed(data))
+    k1r_out = keccak_cuda.absorb_ragged(flat, big_offsets, big_lengths,
+                                        mode="row")
     k1f_plain = keccak_torch.absorb_fixed(data)
     torch.cuda.synchronize()
-    check(torch.equal(k1f_out, k1_out), "K1f != K1 over the padded rows")
+    check(torch.equal(k1f_out, k1r_out), "K1f != K1r over the same rows")
     k1f_err = int((k1f_out.int() - k1f_plain.int()).abs().max())
     check(k1f_err == 0, "K1f != plain at 1M x 576")
     words_out = keccak256_device_fixed(data.view(torch.int32), device=dev)
@@ -369,7 +521,7 @@ def main() -> int:
     k1f_plain_ms = cuda_ms(torch, lambda: keccak_torch.absorb_fixed(data), 2)
     k1f_bound, k1f_bound_by = sponge_bound_ms(n_msg, nblocks,
                                               n_msg * (length + 32))
-    del data, k1f_out, k1_out, k1f_plain, words_out
+    del data, flat, k1f_out, k1r_out, k1f_plain, words_out
     for edge in K1F_EDGES:
         rows = torch.randint(0, 256, (args.edge_rows, edge), dtype=torch.uint8,
                              device=dev, generator=gen)
@@ -519,11 +671,11 @@ def main() -> int:
     path = launches.read("state_root", ("k1f", "k5"))
     check(path["k5"] == 3, f"K5 launched {path['k5']} times, not once per "
           "fused_submit (genesis, bulk_100k, window)")
-    check(path["k1"] == 0, f"K1 launched {path['k1']} times on the state "
-          "root path")
+    check(path["k1r"] == 0, f"K1r launched {path['k1r']} times on the "
+          "state root path")
     main_s = time.perf_counter() - main_t0
     emit({"phase": "main_path", "seconds": main_s,
-          "k5_launches": path["k5"], "k1_launches": path["k1"],
+          "k5_launches": path["k5"], "k1r_launches": path["k1r"],
           "k1f_launches": path["k1f"]})
 
     # 7. K5 timed at the 100k trie's and the window's shapes --------------
@@ -560,17 +712,27 @@ def main() -> int:
         plain_ms = cuda_ms(torch, lambda: fused.resolve_levels_plain(
             plain, total, empty, plan), 2)
         ydig = torch.empty_like(digests)
+        # each class's padded rows read as messages of one byte under
+        # the class width: the same rate blocks a row as K1 hashed
+        headers = [torch.from_numpy(np.concatenate([
+            np.arange(c.nrows, dtype=np.int32) * c.enc.shape[1],
+            np.full(c.nrows, c.enc.shape[1] - 1, np.int32)])).to(dev)
+            for c in classes]
+        lib = build.load()
+        dev_index, stream = build.launch_args(ydig)
 
         def k1_rounds():
             for _ in range(plan.nlevels):
-                for c in classes:
-                    keccak_cuda.absorb_padded(
-                        c.enc, ydig[c.base : c.base + c.nrows])
+                for c, h in zip(classes, headers):
+                    lib.khipu_keccak256_ragged(
+                        c.enc.data_ptr(), h.data_ptr(),
+                        ydig[c.base : c.base + c.nrows].data_ptr(), c.nrows,
+                        0, dev_index, stream)
 
         k1_rounds_ms = cuda_ms(torch, k1_rounds, 10)
         row_blocks = sum(c.nrows * c.nb for c in classes)
         enc_bytes = sum(c.enc.numel() for c in classes)
-        ops_ms = row_blocks * K1_OPS_PER_BLOCK / H100_INT32_OPS_PER_S * 1e3
+        ops_ms = row_blocks * SPONGE_OPS_PER_BLOCK / H100_INT32_OPS_PER_S * 1e3
         # encodings read and written once, 8 index bytes a triple, 8 of
         # order and tptr a row, 32 digest bytes written a row
         bytes_ms = (2 * enc_bytes + 8 * plan.ntriples + 40 * total) \
@@ -653,7 +815,7 @@ def main() -> int:
           "negative_controls": controls,
           "k4_ms_median5": k4_ms, "k4_bound_ms": k4_bound,
           "k4_bound_by": k4_bound_by,
-          "k4_ops_ms": n_rows * m_nblocks * K1_OPS_PER_BLOCK
+          "k4_ops_ms": n_rows * m_nblocks * SPONGE_OPS_PER_BLOCK
           / H100_INT32_OPS_PER_S * 1e3,
           "k4_bytes_ms": (resident_bytes + claim_bytes) / H100_BYTES_PER_S * 1e3,
           "k3_ms_median5": k3_ms, "k3_plain_ms": k3_plain_ms,
@@ -703,9 +865,12 @@ def main() -> int:
     state = syncer.start(src_root)
     torch.cuda.synchronize()
     sync_s = time.perf_counter() - t0
-    path = launches.read("fast_sync", ("k1", "k3", "k4"))
+    path = launches.read("fast_sync", ("k1r", "k3", "k4"))
     observability.enable(False)
     sync_spans = {k: v[1] for k, v in observability.SPAN_TOTALS.items()}
+    verify_calls = observability.SPAN_TOTALS["fastsync.verify"][0]
+    check(path["k1r"] == verify_calls, f"K1r launched {path['k1r']} times "
+          f"for {verify_calls} content checks, not once each")
     check(fetched["deliveries"] == 2, "the corrupt node was not retried once")
     for got, want in ((target.account_node_storage, src_nodes),
                       (target.storage_node_storage, st_nodes),
@@ -739,6 +904,7 @@ def main() -> int:
           "fetch_calls": fetched["calls"],
           "mirror_classes": sorted(nb for nb, _ in sync_mirror._classes),
           "verify_span_s": sync_spans.get("fastsync.verify", 0.0),
+          "verify_calls": verify_calls,
           "spans_s": sync_spans, "reachable_walk_seconds": walk_s,
           "held_against_plain": sync_held, "launches": path})
     del sync_mirror, target, syncer
@@ -783,14 +949,18 @@ def main() -> int:
     del w_mirror, job
 
     tot = launches.total
+    k1r_main = batch100["100x1+4"]
     k5_window = k5_shapes["window_16x400"]
     emit({"kernels": [
-        {"name": "keccak_sponge_k1", "route": "cuda",
+        {"name": "keccak_ragged_k1r", "route": "cuda",
          "source": "khipu_tpu_torch/ops/csrc/keccak.cu",
-         "replaces": "khipu_tpu/ops/keccak_pallas.py:41",
-         "launches": tot["k1"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-         "bound_by": k1_bound_by, "library_ms": None},
+         "replaces": "khipu_tpu/ops/keccak_pallas.py:41 and :295",
+         "launches": tot["k1r"], "max_abs_err": k1r_err,
+         "shape": "100 rows, 1 and 4 rate blocks mixed, column mode",
+         "ms": k1r_main["column_kernel_us"] / 1e3,
+         "plain_ms": k1r_main["plain_us"] / 1e3,
+         "bound_ms": k1r_main["bound_us"] / 1e3,
+         "bound_by": k1r_main["bound_by"], "library_ms": None},
         {"name": "keccak_fixed_k1f", "route": "cuda",
          "source": "khipu_tpu_torch/ops/csrc/keccak.cu",
          "replaces": "khipu_tpu/ops/keccak_pallas.py:181",

@@ -8,9 +8,10 @@ found by name:
 * ``base/``    bytes, nibbles, RLP, the scalar Keccak oracle
 * ``domain/``  the account record
 * ``storage/`` the in-memory node store
-* ``ops/``     batched Keccak-256: plain PyTorch sponge + CUDA kernel K1
+* ``ops/``     batched Keccak-256: plain PyTorch sponge + CUDA kernels
+               K1r (ragged batches) and K1f (rows of one length)
 * ``trie/``    host MPT, bulk build, deferred commit, the fused
-               fixpoint (K1 + the substitution kernel K2)
+               fixpoint (kernel K5)
 * ``state.py`` carries the JAX package's node dict into the port
 
 Entry points take ``device=None``, meaning ``"cuda"``; without a card

@@ -99,10 +99,10 @@ def _compile(srcs: List[Path], so: Path) -> None:
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.khipu_keccak256_rows.argtypes = [p, p, ll, i, i, p]
-    lib.khipu_keccak256_rows.restype = i
     lib.khipu_keccak256_fixed.argtypes = [p, p, ll, i, i, i, p]
     lib.khipu_keccak256_fixed.restype = i
+    lib.khipu_keccak256_ragged.argtypes = [p, p, p, i, i, i, p]
+    lib.khipu_keccak256_ragged.restype = i
     lib.khipu_mirror_hash.argtypes = [p, ll, ll, i, i, p, ll, i, p]
     lib.khipu_mirror_hash.restype = i
     lib.khipu_mirror_verify.argtypes = [p, ll, ll, i, i, p, ll, p, i, p]

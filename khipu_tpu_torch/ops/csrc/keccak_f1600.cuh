@@ -1,5 +1,5 @@
 // Keccak-f[1600] for Hopper (sm_90a), shared by every sponge kernel of
-// khipu_tpu_torch: K1 and K1f (ops/csrc/keccak.cu), K3 and K4
+// khipu_tpu_torch: K1f and K1r (ops/csrc/keccak.cu), K3 and K4
 // (storage/csrc/mirror.cu), K5 (trie/csrc/fixpoint.cu).
 //
 // One thread owns one message and keeps its 25 u64 lanes in registers;

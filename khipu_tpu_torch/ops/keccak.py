@@ -1,8 +1,8 @@
-"""Batched Keccak-256 dispatcher: kernels K1 and K1f on the card, plain
+"""Batched Keccak-256 dispatcher: kernels K1r and K1f on the card, plain
 PyTorch on the CPU.
 
-The public hashing entry points of the port. A CUDA tensor goes to K1
-or K1f (``keccak_cuda``) and a failure there raises; a CPU tensor goes
+The public hashing entry points of the port. A CUDA tensor goes to a
+kernel (``keccak_cuda``) and a failure there raises; a CPU tensor goes
 to the plain version (``keccak_torch``). Nothing falls back from one to
 the other.
 """
@@ -15,24 +15,52 @@ import numpy as np
 import torch
 
 from khipu_tpu_torch.device import resolve_device
+from khipu_tpu_torch.observability import span
 from khipu_tpu_torch.ops import keccak_cuda, keccak_torch
 
 
-def hash_padded(padded: torch.Tensor) -> torch.Tensor:
-    """u8[N, nblocks*136] multi-rate padded rows -> u8[N, 32], on the
-    rows' device."""
-    if padded.is_cuda:
-        return keccak_cuda.absorb_padded(padded)
-    if padded.device.type != "cpu":
-        raise ValueError(f"unsupported device {padded.device}")
-    return keccak_torch.absorb_padded(padded)
-
-
 def keccak256_batch(messages: Sequence[bytes], device=None) -> List[bytes]:
-    """Hash a batch of byte strings to 32-byte digests, in input order."""
-    return keccak_torch.hash_messages(
-        messages, resolve_device(device), hash_padded
-    )
+    """Hash a batch of byte strings to 32-byte digests, in input order.
+    The messages are packed once into one blob (no padding on the host);
+    on the card that is one upload (``stage_ragged``), one K1r launch
+    whatever the mix of rate classes, and one copy of the digests back.
+    Spans: ``keccak.pack``, ``keccak.dispatch`` (upload and launch),
+    ``keccak.collect`` (the wait and the copy back)."""
+    dev = resolve_device(device)
+    if not messages:
+        return []
+    with span("keccak.pack"):
+        blob, offsets, lengths = keccak_torch.pack_ragged(messages)
+    with span("keccak.dispatch"):
+        if dev.type == "cuda":
+            blob_d, header_d = stage_ragged(blob, offsets, lengths, dev)
+            out = keccak_cuda.absorb_ragged(blob_d, offsets, lengths,
+                                            header=header_d)
+        else:
+            out = keccak_torch.absorb_ragged(torch.from_numpy(blob),
+                                             torch.from_numpy(offsets),
+                                             torch.from_numpy(lengths))
+    with span("keccak.collect"):
+        raw = out.cpu().numpy().tobytes()
+        return [raw[i : i + 32] for i in range(0, len(raw), 32)]
+
+
+def stage_ragged(blob: np.ndarray, offsets: np.ndarray, lengths: np.ndarray,
+                 dev: torch.device):
+    """Upload a packed batch in one copy: header (int32 offsets, then
+    lengths) and blob laid end to end in host memory (pinned when ``dev``
+    is a card), copied without blocking. Returns the device blob and
+    header, views of one buffer (the blob starts 8-byte aligned, after 8n
+    header bytes)."""
+    n = offsets.size
+    staged = torch.empty(8 * n + blob.size, dtype=torch.uint8,
+                         pin_memory=dev.type == "cuda")
+    host = staged.numpy()
+    host[: 4 * n] = offsets.view(np.uint8)
+    host[4 * n : 8 * n] = lengths.view(np.uint8)
+    host[8 * n :] = blob
+    dev_buf = staged.to(dev, non_blocking=True)
+    return dev_buf[8 * n :], dev_buf[: 8 * n].view(torch.int32)
 
 
 _WORD_DTYPES = tuple(

@@ -1,5 +1,7 @@
-"""Keccak-256 in plain PyTorch: the plain versions of kernels K1
-(``absorb_padded``) and K1f (``absorb_fixed``).
+"""Keccak-256 in plain PyTorch: the sponge over padded rows
+(``absorb_padded``, which the mirror's and the fixpoint's plain versions
+call) and the plain versions of kernels K1f (``absorb_fixed``) and K1r
+(``absorb_ragged``).
 
 The sponge runs on int64 tensors shaped [25, N] (lane, message), so each
 step of a round is one tensor op over every lane of every message. The
@@ -8,15 +10,17 @@ are int64: left shifts wrap as they would on u64, and every right shift
 is masked to stay logical. The same code runs on CUDA tensors, where
 ``chip_smoke.py`` holds the kernel against it.
 
-Also here: the host-side padding helper, copied from the JAX package's
-``ops/keccak_jnp.py`` (that module imports jax), and the rate-class
-bucketing of variable-length batches.
+Also here: the ragged packer (``pack_ragged``: messages at 8-byte
+aligned offsets of one blob, no padding), and the host-side padding
+helper, copied from the JAX package's ``ops/keccak_jnp.py`` (that module
+imports jax), which the bucketed ``keccak256_batch_plain`` and the tests
+use.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable, List, Sequence
+from typing import List, Sequence
 
 import numpy as np
 import torch
@@ -122,6 +126,63 @@ def absorb_fixed(data_u8: torch.Tensor) -> torch.Tensor:
     return absorb_padded(pad_fixed(data_u8))
 
 
+# rows of one rate class gathered at a time by ``absorb_ragged``
+_RAGGED_CHUNK = 1 << 17
+_GAPS = tuple(bytes(k) for k in range(8))
+
+
+def pack_ragged(messages: Sequence[bytes]):
+    """Pack messages for K1r: ``(blob, offsets, lengths)``, numpy u8[B]
+    and int32[n] x 2. Message i sits at ``offsets[i]``, a multiple of 8,
+    followed by zeros up to the next multiple of 8; nothing is padded to
+    a rate block."""
+    n = len(messages)
+    lengths = np.fromiter(map(len, messages), dtype=np.int64, count=n)
+    spans = (lengths + 7) & ~7
+    offsets = np.zeros(n, dtype=np.int64)
+    np.cumsum(spans[:-1], out=offsets[1:])
+    if n and int(offsets[-1] + spans[-1]) >= 1 << 31:
+        raise ValueError("a ragged batch holds at most 2 GiB")
+    blob = bytearray().join(
+        [part for m in messages for part in (m, _GAPS[-len(m) & 7])]
+    )
+    return (np.frombuffer(blob, dtype=np.uint8), offsets.astype(np.int32),
+            lengths.astype(np.int32))
+
+
+def absorb_ragged(
+    blob: torch.Tensor, offsets: torch.Tensor, lengths: torch.Tensor
+) -> torch.Tensor:
+    """Plain version of K1r: message i is ``lengths[i]`` bytes of the u8
+    ``blob`` at ``offsets[i]``; returns u8[n, 32] on the blob's device.
+    Bucketed by rate class: each class's rows are gathered, padded and
+    hashed with ``absorb_padded``."""
+    if blob.dtype != torch.uint8 or blob.dim() != 1:
+        raise ValueError("expected a u8[B] blob")
+    dev = blob.device
+    off = offsets.to(dev, torch.int64)
+    lens = lengths.to(dev, torch.int64)
+    if off.shape != lens.shape or off.dim() != 1:
+        raise ValueError("offsets and lengths must be int[n] of one length")
+    n = off.numel()
+    out = torch.empty((n, 32), dtype=torch.uint8, device=dev)
+    # bytes past the blob never count (they are masked), so an empty blob
+    # reads as one zero byte
+    src = blob if blob.numel() else torch.zeros(1, dtype=torch.uint8, device=dev)
+    nblocks = lens // RATE + 1
+    for nb in torch.unique(nblocks).tolist():
+        width = nb * RATE
+        cols = torch.arange(width, device=dev)
+        for idx in torch.nonzero(nblocks == nb).flatten().split(_RAGGED_CHUNK):
+            length = lens[idx, None]
+            pos = (off[idx, None] + cols).clamp_(0, src.numel() - 1)
+            rows = torch.where(cols < length, src[pos], 0).to(torch.uint8)
+            rows[torch.arange(idx.numel(), device=dev), lens[idx]] ^= 0x01
+            rows[:, width - 1] ^= 0x80
+            out[idx] = absorb_padded(rows)
+    return out
+
+
 def pad_to_words(messages: Sequence[bytes], nblocks: int) -> np.ndarray:
     """Host-side multi-rate padding, batch-major: uint32[B, nblocks*34]
     (``.view(np.uint8)`` gives the padded rows). The pad XORs, so a
@@ -140,29 +201,20 @@ def pad_to_words(messages: Sequence[bytes], nblocks: int) -> np.ndarray:
     return buf.view("<u4")  # (B, nblocks*34)
 
 
-def hash_messages(
-    messages: Sequence[bytes],
-    device: torch.device,
-    absorb: Callable[[torch.Tensor], torch.Tensor],
-) -> List[bytes]:
-    """Hash variable-length messages in input order: bucket by rate
-    class, pad on the host, ``absorb`` each bucket on ``device`` and
-    scatter the digests back. Buckets are not padded to fixed counts:
-    a CUDA kernel needs no shape bucketing."""
+def keccak256_batch_plain(messages: Sequence[bytes], device="cpu") -> List[bytes]:
+    """A plain version of ``ops.keccak.keccak256_batch`` on ``device``,
+    independent of K1r's packing: bucket by rate class, pad each bucket
+    on the host, ``absorb_padded`` it and scatter the digests back in
+    input order. On the card it is an oracle for the kernel, and a hasher
+    for the level loop that launches no kernel."""
     buckets = {}
     for idx, m in enumerate(messages):
         buckets.setdefault(len(m) // RATE + 1, []).append(idx)
     out: List[bytes] = [b""] * len(messages)
     for nblocks, idxs in sorted(buckets.items()):
         rows = pad_to_words([messages[i] for i in idxs], nblocks).view(np.uint8)
-        blob = absorb(torch.from_numpy(rows).to(device)).cpu().numpy().tobytes()
+        digests = absorb_padded(torch.from_numpy(rows).to(device))
+        blob = digests.cpu().numpy().tobytes()
         for j, i in enumerate(idxs):
             out[i] = blob[32 * j : 32 * j + 32]
     return out
-
-
-def keccak256_batch_plain(messages: Sequence[bytes], device="cpu") -> List[bytes]:
-    """The plain version of ``ops.keccak.keccak256_batch`` on ``device``
-    (on the card it is the kernel's oracle, and a hasher for the level
-    loop that launches no kernel)."""
-    return hash_messages(messages, torch.device(device), absorb_padded)

@@ -25,7 +25,7 @@
 // mismatching rows with __syncthreads_count and adds them with one
 // atomicAdd per block into one int32 count. One launch per class.
 //
-// Bound: integer ALU, like K1 (about 4,354 32-bit operations per row per
+// Bound: integer ALU, like K1f (about 4,354 32-bit operations per row per
 // rate block against 136 bytes read); the word-major loads coalesce.
 
 #include "../../ops/csrc/keccak_f1600.cuh"

@@ -2,7 +2,7 @@
 and batched content-address verification.
 
 The port's counterpart of ``khipu_tpu.sync.fast_sync``. The default
-hasher is the batched sponge on ``device`` (kernel K1 on the card), not
+hasher is the batched sponge on ``device`` (kernel K1r on the card), not
 the host scalar hash, and the final mirror verify runs kernel K4 per
 size class. ``segment_snapshot_ingest`` needs the Kesque segment engine
 and is not ported yet.

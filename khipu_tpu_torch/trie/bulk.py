@@ -50,7 +50,7 @@ def host_hasher(messages: Sequence[bytes]) -> List[bytes]:
 
 
 def device_hasher(messages: Sequence[bytes], device=None) -> List[bytes]:
-    """One batched call per level: K1 on the card (``device=None``), the
+    """One batched call per level: K1r on the card (``device=None``), the
     plain sponge with ``device="cpu"``."""
     from khipu_tpu_torch.ops.keccak import keccak256_batch
 

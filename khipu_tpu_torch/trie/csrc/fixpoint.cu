@@ -16,7 +16,7 @@
 //      the resolved-input tile `ext`, stored at enc[row, off] (offsets
 //      are RLP byte positions, not aligned: u32 stores for the aligned
 //      middle, bytes at the edges);
-//   2. absorb: the row, now final, as K1 absorbs it (u64 lanes: rows are
+//   2. absorb: the row, now final, as a padded row (u64 lanes: rows are
 //      136 * nb bytes and 8-byte aligned), with keccak_f1600.cuh;
 //   3. its digest into digests[row].
 // Only the owner writes a row, so there are no races and no atomics: a
@@ -33,7 +33,7 @@
 // row still holds the current value of every byte this thread reads.
 // Other threads never read another row's encoding.
 //
-// Bound: operations, as K1: sum over rows of nb * 4,354 32-bit integer
+// Bound: operations, as K1f: sum over rows of nb * 4,354 32-bit integer
 // operations at 16.7e12 a second, against the rows read and written
 // once, 8 index bytes a triple, the ext rows and 32 digest bytes a row
 // at 3.35e12 B/s. The DAG's depth sets a latency floor that bound

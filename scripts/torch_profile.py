@@ -11,8 +11,9 @@ only the port's spans on, then once under ``torch.profiler``. For
 each it prints one JSON line: host wall seconds, span seconds, the
 device's busy seconds (the union of device activity intervals in the
 trace), the device's idle share of the profiled wall time, device time
-by kernel name, and K5's (the fixpoint kernel's) launches, device time
-and share of the busy time. Chrome traces go to ``DIR`` (default
+by kernel name, and the launches, device time and share of the busy
+time of K5 (the fixpoint kernel) and of K1r (the batched sponge of fast
+sync's content check). Chrome traces go to ``DIR`` (default
 ``_profiles/``, which ``.gitignore`` lists). Exits 2 without a card.
 """
 
@@ -59,14 +60,19 @@ def device_profile(torch, prof, wall_s: float, top: int = 8) -> dict:
                             "device_ms": dev_us / 1e3})
     kernels.sort(key=lambda k: -k["device_ms"])
     busy_s = busy_us / 1e6
-    k5 = [k for k in kernels if "fixpoint_levels" in k["name"]]
-    k5_ms = sum(k["device_ms"] for k in k5)
+
+    def kernel(match):
+        rows = [k for k in kernels if match in k["name"]]
+        ms = sum(k["device_ms"] for k in rows)
+        return {"launches": sum(k["count"] for k in rows), "device_ms": ms,
+                "share_of_device_time": (ms / 1e3 / busy_s) if busy_s else None}
+
     return {
         "device_busy_s": busy_s,
         "device_idle_share": (1.0 - busy_s / wall_s) if busy_s else None,
         "device_events": len(spans),
-        "k5": {"launches": sum(k["count"] for k in k5), "device_ms": k5_ms,
-               "share_of_device_time": (k5_ms / 1e3 / busy_s) if busy_s else None},
+        "k5": kernel("fixpoint_levels"),
+        "k1r": kernel("ragged"),
         "kernels": kernels[:top],
     }
 

@@ -99,8 +99,9 @@ def test_entry_points_raise_without_card(no_card, call):
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     rows = torch.zeros((2, 136), dtype=torch.uint8)
-    with pytest.raises(ValueError):
-        keccak_cuda.absorb_padded(rows)
+    with pytest.raises(ValueError, match="on the card"):
+        keccak_cuda.absorb_ragged(rows.view(-1), np.zeros(2, np.int32),
+                                  np.full(2, 136, np.int32))
     i32 = torch.zeros(2, dtype=torch.int32)
     d = torch.zeros((2, 32), dtype=torch.uint8)
     with pytest.raises(ValueError):
@@ -151,3 +152,72 @@ def test_build_key_covers_shared_headers(monkeypatch):
     key = build._key(srcs)
     monkeypatch.setattr(build, "headers", lambda: [])
     assert build._key(srcs) != key
+
+
+def _ragged_call(blob_bytes=64, offsets=(0, 8), lengths=(5, 40), **kw):
+    return lambda: keccak_cuda.absorb_ragged(
+        torch.zeros(blob_bytes, dtype=torch.uint8),
+        np.asarray(offsets, np.int32), np.asarray(lengths, np.int32), **kw)
+
+
+@pytest.mark.parametrize("call,match", [
+    (_ragged_call(offsets=(0, 12)), "aligned"),
+    (_ragged_call(offsets=(0, 32)), "bounds"),  # 32 + 40 > 64
+    (_ragged_call(lengths=(5, 57)), "bounds"),  # rounded up to 64
+    (_ragged_call(offsets=(-8, 8)), "negative"),
+    (_ragged_call(lengths=(5, -1)), "negative"),
+    (_ragged_call(lengths=(5,)), "one length"),
+    (lambda: keccak_cuda.absorb_ragged(
+        torch.zeros(64, dtype=torch.uint8), np.zeros(2, np.int64),
+        np.zeros(2, np.int32)), "int32"),
+    (lambda: keccak_cuda.absorb_ragged(
+        torch.zeros((8, 8), dtype=torch.uint8), np.zeros(2, np.int32),
+        np.zeros(2, np.int32)), "u8"),
+    (_ragged_call(), "on the card"),
+], ids=["misaligned", "offset_out_of_bounds", "length_out_of_bounds",
+        "negative_offset", "negative_length", "header_shapes",
+        "header_dtype", "blob_shape", "cpu_blob"])
+def test_ragged_wrapper_checks_before_launch(call, match):
+    """K1r's wrapper checks the header on the host, then refuses a blob
+    that is not on the card; nothing is launched."""
+    before = keccak_cuda.RAGGED_LAUNCHES
+    with pytest.raises(ValueError, match=match):
+        call()
+    assert keccak_cuda.RAGGED_LAUNCHES == before
+
+
+def test_ragged_mode_switch():
+    assert keccak_cuda.ragged_mode(100) == "column"
+    assert keccak_cuda.ragged_mode(keccak_cuda.COLUMN_MAX_ROWS) == "column"
+    assert keccak_cuda.ragged_mode(keccak_cuda.COLUMN_MAX_ROWS + 1) == "row"
+
+
+def test_k1_is_retired():
+    """K1r took K1's place on every path: no padded-row kernel is left to
+    launch or bind."""
+    assert not hasattr(keccak_cuda, "absorb_padded")
+    assert not hasattr(keccak_cuda, "LAUNCHES")
+    src = (build.PKG / "ops" / "csrc" / "keccak.cu").read_text()
+    assert "khipu_keccak256_rows" not in src
+    assert "khipu_keccak256_ragged" in src
+
+
+@pytest.mark.parametrize("script", [
+    "chip_smoke.py", "scripts/k1_ablation.py", "scripts/k5_ablation.py",
+    "scripts/torch_profile.py",
+])
+def test_scripts_import_no_jax_and_no_reference(script):
+    """The chip scripts import nothing of JAX or of khipu_tpu (read from
+    their syntax trees: importing them needs no card either way)."""
+    import ast
+
+    tree = ast.parse(open(os.path.join(REPO, script)).read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    roots = {n.split(".")[0] for n in names}
+    assert "jax" not in roots and "khipu_tpu" not in roots
+    assert "khipu_tpu_torch" in roots
