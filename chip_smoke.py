@@ -11,7 +11,8 @@ verify) from the repository's CUDA sources, holds each against its plain
 PyTorch version on the card, then drives the port through the entry
 points a user calls:
 
-  1. build every kernel with nvcc, one process per source
+  1. build every kernel with nvcc, one process per source, and the host
+     library (native Keccak and secp256k1) with g++
   2. K1r in each mode vs its plain version (``absorb_ragged``) and the
      scalar oracle: the pad's and rate classes' edges, a 5,000-row mixed
      batch with 2,048 B rows (and ``keccak256_batch`` on it in input
@@ -51,12 +52,32 @@ points a user calls:
      its admit tiles landed with ``admit_device`` and ``rekey``ed;
      ``verify()`` == 0 and ``spill_rows`` equal the persisted nodes
 
+ 11. replay_block1: the mainnet genesis loaded on the card
+     (``load_genesis(on_device=True)``, K1r once a trie level), then
+     mainnet block 1 through ``ReplayDriver(device_commit=True)``: the
+     root must be the sealed header's, the miner must hold 5 ETH
+ 12. replay_transfers: 128 blocks of one value transfer each, built by
+     ``ChainBuilder`` on the host, round-tripped through wire RLP and
+     replayed on the card
+ 13. replay_erc20: a deploy block, then 16 blocks of 200 ERC-20
+     ``transfer(to, amount)`` calls (200 senders, 256 holders), built and
+     replayed as in 12; K1r then held against its plain version in both
+     modes on every batch the replay's trie commits hashed
+
+The replays run serially (``parallel_tx=False``), one block a commit
+(``commit_window_blocks=1``), senders recovered by the prefetch thread
+with each block's signing hashes in one K1r launch. Every block passes
+``save_block``'s root check; 12 and 13 also hold the final root, the
+three node stores and every block's receipts to the host-built chain's.
+Each replay line gives blocks/s, tx/s, the driver's phase split and
+K1r's launches a block, the trie commits' and the senders' apart.
+
 After phases 9 and 10, K3 and K4 are held against their plain versions
 on every class of that phase's mirror, whole (the padded generic
 classes the paths gave them), with the negative controls in each class.
 
-Launch counts are zeroed just before each driven path (4-6, 8, 9, 10)
-and read just after it. Every comparison is exact (bytes). Each phase
+Launch counts are zeroed just before each driven path (4-6, 8, 9, 10,
+and each genesis load and replay of 11-13) and read just after it. Every comparison is exact (bytes). Each phase
 prints one JSON line; the first line is the card's name and power limit from nvidia-smi, the line
 before the last lists the kernels, and the last line is the result. Any
 failure exits non-zero before the result line; without a card the
@@ -66,10 +87,12 @@ script exits 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -324,6 +347,161 @@ class Launches:
         return got
 
 
+def replay_phases(args, torch, dev, launches, packed, hold_ragged) -> int:
+    """Phases 11-13: regular-sync replay, block by block, on the card.
+    Returns the largest difference of K1r from its plain version on the
+    batches the ERC-20 replay's trie commits hashed."""
+    from khipu_tpu_torch import workloads
+    from khipu_tpu_torch.config import KhipuConfig, SyncConfig
+    from khipu_tpu_torch.domain.block import Block, BlockBody
+    from khipu_tpu_torch.domain.blockchain import Blockchain
+    from khipu_tpu_torch.ops import keccak as keccak_ops
+    from khipu_tpu_torch.ops import keccak_cuda, keccak_torch
+    from khipu_tpu_torch.storage.storages import Storages
+    from khipu_tpu_torch.sync import prefetch
+    from khipu_tpu_torch.sync.replay import ReplayDriver
+
+    genesis_file = os.path.join(ROOT, "tests", "fixtures",
+                                "mainnet_genesis_alloc.txt.gz")
+
+    def replay(name, cfg, spec, blocks, source=None, **extra):
+        """Load ``spec`` on the card, replay ``blocks`` (after a wire round
+        trip) with ``device_commit``, gate it and emit its line. With
+        ``source`` (the host-built chain) the node stores and receipts
+        must equal its own."""
+        wire = [Block.decode(b.encode()) for b in blocks]
+        target = Blockchain(Storages(), cfg)
+        launches.zero()
+        t0 = time.perf_counter()
+        target.load_genesis(spec, on_device=True, device=dev)
+        torch.cuda.synchronize()
+        genesis_s = time.perf_counter() - t0
+        genesis = launches.read(f"{name} genesis", ("k1r",))
+        prefetch.flush_sender_cache()
+        batches0 = prefetch.PREFETCH_GAUGES["device_batches"]
+        launches.zero()
+        stats = ReplayDriver(target, cfg, device_commit=True,
+                             device=dev).replay(wire)
+        torch.cuda.synchronize()
+        path = launches.read(name, ("k1r",))
+        senders = prefetch.PREFETCH_GAUGES["device_batches"] - batches0
+        with_txs = sum(1 for b in wire if b.body.transactions)
+        check(senders == with_txs, f"{name}: {senders} sender batches on the "
+              f"card for {with_txs} blocks with transactions")
+        flush = path["k1r"] - senders
+        check(flush > 0, f"{name}: no trie commit launched K1r")
+        check(stats.blocks == len(wire), f"{name}: replayed {stats.blocks} "
+              f"of {len(wire)} blocks")
+        head = wire[-1].header
+        check(target.best_block_number == head.number
+              and target.get_header_by_number(head.number).state_root
+              == head.state_root, f"{name}: final state root differs")
+        if source is not None:
+            for store in ("account_node_storage", "storage_node_storage",
+                          "evmcode_storage"):
+                check(getattr(target.storages, store).source._map
+                      == getattr(source.storages, store).source._map,
+                      f"{name}: {store} != the host-built chain's")
+            for n in range(1, head.number + 1):
+                check(target.storages.receipts_storage.get(n)
+                      == source.storages.receipts_storage.get(n),
+                      f"{name}: block {n}'s receipts differ")
+        n = stats.blocks
+        emit({"phase": name, "blocks": n, "txs": stats.txs, "gas": stats.gas,
+              "seconds": stats.seconds, "blocks_per_s": stats.blocks_per_s,
+              "tx_per_s": stats.txs / stats.seconds,
+              "phases_s": stats.phases, "genesis_accounts": len(spec.alloc),
+              "genesis_seconds": genesis_s,
+              "genesis_k1r_launches": genesis["k1r"],
+              "k1r_launches": path["k1r"], "k1r_flush_launches": flush,
+              "k1r_sender_launches": senders,
+              "k1r_flush_per_block": flush / n,
+              "k1r_sender_per_block": senders / n,
+              "launches": path, "root": head.state_root.hex(), **extra})
+        return target
+
+    def record_commits(cfg, spec, blocks):
+        """The message batches the driver thread hashes (the trie
+        commits') in a second, untimed replay of ``blocks``: the timed
+        replay carries no recorder, and these launches count nowhere."""
+        target = Blockchain(Storages(), cfg)
+        target.load_genesis(spec, on_device=True, device=dev)
+        recorded, hash_batch = [], keccak_ops.keccak256_batch
+        driver_thread = threading.get_ident()
+
+        def recording(messages, device=None):
+            if threading.get_ident() == driver_thread:
+                recorded.append(list(messages))
+            return hash_batch(messages, device)
+
+        keccak_ops.keccak256_batch = recording
+        try:
+            ReplayDriver(target, cfg, device_commit=True, device=dev).replay(
+                [Block.decode(b.encode()) for b in blocks])
+        finally:
+            keccak_ops.keccak256_batch = hash_batch
+        return recorded
+
+    b1_cfg = dataclasses.replace(KhipuConfig(),
+                                 sync=SyncConfig(parallel_tx=False))
+    header = workloads.MAINNET_BLOCK1
+    b1_spec = workloads.mainnet_genesis_spec(genesis_file)
+    b1 = replay("replay_block1", b1_cfg, b1_spec, [Block(header, BlockBody())])
+    check(b1.get_header_by_number(0).hash == workloads.MAINNET_GENESIS_HASH,
+          "genesis hash != mainnet's")
+    miner = b1.get_account(header.beneficiary, header.state_root)
+    check(miner.balance == 5 * 10**18, f"miner holds {miner.balance} wei")
+    del b1
+
+    replay_cfg = workloads.replay_config()
+    t0 = time.perf_counter()
+    builder, spec, blocks = workloads.transfer_chain(
+        replay_cfg, args.transfer_blocks, 1)
+    replay("replay_transfers", replay_cfg, spec, blocks, builder.blockchain,
+           build_seconds=time.perf_counter() - t0)
+
+    erc20_txs, holders = 200, 256
+    t0 = time.perf_counter()
+    builder, spec, blocks = workloads.erc20_chain(
+        replay_cfg, args.erc20_blocks, erc20_txs, holders)
+    build_s = time.perf_counter() - t0
+    replay("replay_erc20", replay_cfg, spec, blocks, builder.blockchain,
+           build_seconds=build_s, holders=holders,
+           transfers=args.erc20_blocks * erc20_txs,
+           reduced=f"{args.erc20_blocks} synthetic blocks of {erc20_txs} "
+           "token transfers after a deploy block, in place of BASELINE #4's "
+           "10,000 mainnet blocks (15.50M-15.51M, ~200 tx a block)")
+    check(len(blocks) == args.erc20_blocks + 1 and all(
+        len(b.body.transactions) == erc20_txs for b in blocks[1:]),
+        "replay_erc20 is not 200 transfers a block")
+    # K1r vs its plain version, both modes, on the commits' batches
+    recorded, k1r_err, packs = record_commits(replay_cfg, spec, blocks), 0, []
+    for i, msgs in enumerate(recorded):
+        blob, offsets, lengths = packed(msgs)
+        k1r_err = max(k1r_err, hold_ragged(
+            blob, offsets, lengths, f"replay_erc20 batch {i}",
+            {0: msgs[0], len(msgs) - 1: msgs[-1]}))
+        packs.append((blob, offsets, lengths))
+    rows = [len(m) for m in recorded]
+    nbs = [len(m) // 136 + 1 for msgs in recorded for m in msgs]
+    back_to_back_ms = cuda_ms(torch, lambda: [
+        keccak_cuda.absorb_ragged(*p) for p in packs], 5)
+    plain_all_ms = cuda_ms(torch, lambda: [keccak_torch.absorb_ragged(
+        b, torch.from_numpy(o), torch.from_numpy(ln)) for b, o, ln in packs], 1)
+    ops_s = sum(nbs) * SPONGE_OPS_PER_BLOCK / H100_INT32_OPS_PER_S
+    bytes_s = sum(p[0].numel() + 40 * len(p[1]) for p in packs) \
+        / H100_BYTES_PER_S
+    emit({"phase": "k1r_replay_batches", "batches": len(recorded),
+          "rows_min": min(rows), "rows_median": sorted(rows)[len(rows) // 2],
+          "rows_max": max(rows), "rate_blocks": sum(nbs),
+          "modes": ["row", "column"], "max_abs_err": k1r_err,
+          "all_batches_call_ms": back_to_back_ms,
+          "all_batches_plain_ms": plain_all_ms,
+          "all_batches_bound_ms": max(ops_s, bytes_s) * 1e3,
+          "bound_by": "operations" if ops_s >= bytes_s else "bytes"})
+    return k1r_err
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -334,6 +512,8 @@ def main() -> int:
     ap.add_argument("--new-accounts", type=int, default=20)
     ap.add_argument("--edge-rows", type=int, default=4097)
     ap.add_argument("--mirror-rows", type=int, default=10_485_760)
+    ap.add_argument("--transfer-blocks", type=int, default=128)
+    ap.add_argument("--erc20-blocks", type=int, default=16)
     args = ap.parse_args()
 
     import torch
@@ -348,6 +528,7 @@ def main() -> int:
     from khipu_tpu_torch.base.keccak import keccak256_py
     from khipu_tpu_torch.base.rlp import rlp_encode_int
     from khipu_tpu_torch.domain.account import Account, address_key
+    from khipu_tpu_torch.native import build as native_build
     from khipu_tpu_torch.ops import build, keccak_cuda, keccak_torch
     from khipu_tpu_torch.ops.keccak import keccak256_batch, keccak256_device_fixed
     from khipu_tpu_torch.state import load_reference_nodes
@@ -370,9 +551,19 @@ def main() -> int:
     # 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
     build.load()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    kernels_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_lib = native_build.load_library()
+    check(host_lib is native_build.load_library() and
+          hasattr(host_lib, "khipu_ecdsa_recover_batch"),
+          "the host library did not load")
+    emit({"phase": "build", "seconds": kernels_s,
           "sources": [str(p.relative_to(ROOT)) for p in build.sources()],
-          "ptxas": ptxas_by_kernel(build.BUILD_LOG)})
+          "ptxas": ptxas_by_kernel(build.BUILD_LOG),
+          "host_library": os.path.basename(host_lib._name),
+          "host_sources": [str(p.relative_to(ROOT))
+                           for p in native_build.sources()],
+          "host_seconds": time.perf_counter() - t0})
 
     # 2. K1r against its plain version and the scalar oracle -------------
     def packed(msgs):
@@ -948,6 +1139,9 @@ def main() -> int:
           "held_against_plain": w_held, "launches": path})
     del w_mirror, job
 
+    k1r_err = max(k1r_err, replay_phases(args, torch, dev, launches, packed,
+                                         hold_ragged))
+
     tot = launches.total
     k1r_main = batch100["100x1+4"]
     k5_window = k5_shapes["window_16x400"]
@@ -956,6 +1150,8 @@ def main() -> int:
          "source": "khipu_tpu_torch/ops/csrc/keccak.cu",
          "replaces": "khipu_tpu/ops/keccak_pallas.py:41 and :295",
          "launches": tot["k1r"], "max_abs_err": k1r_err,
+         "launches_note": "fast sync's content checks, each replay's "
+         "genesis load, trie commits and sender batches",
          "shape": "100 rows, 1 and 4 rate blocks mixed, column mode",
          "ms": k1r_main["column_kernel_us"] / 1e3,
          "plain_ms": k1r_main["plain_us"] / 1e3,

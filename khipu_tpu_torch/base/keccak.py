@@ -1,10 +1,12 @@
 """Keccak-256 (original Keccak padding 0x01, NOT NIST SHA-3 0x06).
 
-Scalar pure-Python sponge: the oracle the batched paths are tested
-against, and the hasher for singletons (an inline trie root, a test
-vector). Batches go through ``khipu_tpu_torch.ops.keccak`` — the plain
-PyTorch sponge on the CPU, the hand-written CUDA kernel on the card.
-A hash here costs about half a millisecond on one CPU core.
+``keccak256`` hashes one message on the host through the native C++
+sponge (``khipu_tpu_torch/native/csrc/keccak.cc``, built with g++ at the
+first hash; a failed build raises). ``keccak256_py`` is the pure-Python
+sponge, about half a millisecond a hash on one CPU core: the oracle the
+native and batched paths are tested against. Batches go through
+``khipu_tpu_torch.ops.keccak`` — the plain PyTorch sponge on the CPU,
+the hand-written CUDA kernel on the card.
 """
 
 from __future__ import annotations
@@ -100,4 +102,14 @@ def keccak256_py(data: bytes) -> bytes:
     return _keccak(bytes(data), 136, 32)
 
 
-keccak256 = keccak256_py
+_native_keccak256 = None
+
+
+def keccak256(data: bytes) -> bytes:
+    """keccak-256 (rate 136) of one message, through the native sponge."""
+    global _native_keccak256
+    if _native_keccak256 is None:
+        from khipu_tpu_torch.native.keccak import keccak256 as native
+
+        _native_keccak256 = native
+    return _native_keccak256(data)

@@ -1,0 +1,146 @@
+"""Configuration tree — one dataclass hierarchy for the whole node.
+
+The port's copy of ``khipu_tpu.config``, every default the same, cut to
+the fields the port reads: the chain's fork schedule and the serial
+replay's sync knobs. A section or field comes back with the module that
+reads it. The unported values of the fields kept raise where they are
+read (``parallel_tx`` with more than one transaction in a block,
+``commit_window_blocks > 1``).
+
+Parity: config/KhipuConfig.scala:20-120 (nested Network/Sync/Db accessor
+objects over HOCON) and BlockchainConfig :185 (fork block numbers,
+chainId, accountStartNonce, monetary policy). HOCON cake traits become
+plain frozen dataclasses.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+FAR = 1 << 62  # "fork not scheduled" sentinel block number
+
+
+@dataclass(frozen=True)
+class MonetaryPolicy:
+    """Block reward eras (BlockRewardCalculator.scala:11 — ETH forks)."""
+
+    frontier_reward: int = 5 * 10**18
+    byzantium_reward: int = 3 * 10**18  # EIP-649
+    constantinople_reward: int = 2 * 10**18  # EIP-1234
+
+
+@dataclass(frozen=True)
+class BlockchainConfig:
+    """Fork schedule + chain constants (BlockchainConfig, KhipuConfig.scala:185).
+
+    Defaults are Ethereum mainnet numbers; fixtures construct compressed
+    schedules (e.g. all forks at 0) for targeted testing.
+    """
+
+    chain_id: int = 1
+    account_start_nonce: int = 0
+    # fork activation block numbers
+    homestead_block: int = 1_150_000
+    eip150_block: int = 2_463_000
+    eip155_block: int = 2_675_000  # also EIP-160/161 (Spurious Dragon)
+    eip160_block: int = 2_675_000
+    eip161_block: int = 2_675_000
+    # one-block mainnet patch: blocks where EIP-161 state clearing was
+    # retro-disabled (EvmConfig.scala:111-118 eip161PatchBlockNumber)
+    eip161_patch_block: int = FAR
+    eip170_block: int = 2_675_000  # max code size
+    byzantium_block: int = 4_370_000
+    constantinople_block: int = 7_280_000
+    petersburg_block: int = 7_280_000
+    istanbul_block: int = 9_069_000
+    # DAO hard fork (KhipuConfig.scala:219-220 dao-fork-block-number/
+    # hash; ForkResolver.scala:18-31). The hash is OUR side's block at
+    # the fork height — defaults are the pro-fork (ETH) mainnet side.
+    dao_fork_block_number: int = 1_920_000
+    dao_fork_block_hash: Optional[bytes] = bytes.fromhex(
+        "4985f5ca3d2afbec36529aa96f74de3cc10a2a4a6c44f2157a57d2c6059a11bb"
+    )
+    # pro-fork consensus rule (geth PR#2814): blocks in
+    # [fork, fork + range) must carry exactly this extraData. None
+    # disables the rule (the contra-fork side instead REJECTS it).
+    dao_fork_extra_data: Optional[bytes] = bytes.fromhex(
+        "64616f2d686172642d666f726b"  # "dao-hard-fork"
+    )
+    dao_fork_extra_data_range: int = 10
+    # irregular state change at the fork block: each drain address's
+    # full balance moves into the refund contract before any tx runs.
+    # NOTE: the canonical mainnet list (116 child-DAO addresses ->
+    # 0xbf4ed7b2...) is chain data that must be provisioned by the
+    # operator; with an empty list a mainnet replay stops AT the fork
+    # block with a state-root mismatch rather than silently diverging.
+    dao_drain_list: tuple = ()  # 20-byte addresses
+    dao_refund_contract: Optional[bytes] = None
+    # difficulty-bomb rewind schedule (DifficultyCalculator.scala:17):
+    # (activation_block, total_rewind) pairs, cumulative per EIP-649
+    # (-3M), EIP-1234 (-5M), EIP-2384 (-9M); the largest activated
+    # rewind applies
+    bomb_delays: tuple = (
+        (4_370_000, 3_000_000),
+        (7_280_000, 5_000_000),
+        (9_200_000, 9_000_000),
+    )
+    bomb_defuse_block: int = FAR
+    monetary_policy: MonetaryPolicy = field(default_factory=MonetaryPolicy)
+    max_code_size: int = 24_576  # EIP-170
+
+
+@dataclass(frozen=True)
+class SyncConfig:
+    """Replay/sync knobs (KhipuConfig.Sync)."""
+
+    # optimistic parallel execution (P1); the port runs the serial fold
+    # and raises for a block of more than one transaction while it is on
+    parallel_tx: bool = True
+    # pipelined sender recovery (sync/prefetch.py): a prefetch thread
+    # recovers senders for upcoming blocks while the driver executes
+    # the current block, with a process-wide (preimage, v, r, s) ->
+    # sender cache so re-imports/reorgs never pay recovery twice
+    sender_prefetch: bool = True
+    sender_prefetch_depth: int = 8  # blocks buffered ahead of driver
+    sender_cache_entries: int = 65536  # LRU cap (~100 B/entry)
+    # batch the per-tx signing-hash keccaks through ops.keccak when the
+    # replay runs on the card (one K1r launch per block instead of N
+    # host hashes). Host keccak is native C, so with device="cpu" this
+    # knob is a no-op
+    sender_batch_hash: bool = True
+    # blocks batched per device trie commit; the port replays 1 and
+    # raises for more (the windowed pipeline is not ported)
+    commit_window_blocks: int = 1
+    # opcode-level trace for ONE block number (debug-trace-at;
+    # VM.scala:40-57) — that block runs sequentially with a per-op line
+    debug_trace_at: Optional[int] = None
+
+
+@dataclass(frozen=True)
+class KhipuConfig:
+    blockchain: BlockchainConfig = field(default_factory=BlockchainConfig)
+    sync: SyncConfig = field(default_factory=SyncConfig)
+
+
+def fixture_config(
+    chain_id: int = 1, fork_block: int = 0, **overrides
+) -> KhipuConfig:
+    """A compressed schedule with every fork active from ``fork_block`` —
+    what fixture chains use so modern semantics apply from genesis."""
+    kwargs = dict(
+        chain_id=chain_id,
+        homestead_block=fork_block,
+        eip150_block=fork_block,
+        eip155_block=fork_block,
+        eip160_block=fork_block,
+        eip161_block=fork_block,
+        eip170_block=fork_block,
+        byzantium_block=fork_block,
+        constantinople_block=fork_block,
+        petersburg_block=fork_block,
+        istanbul_block=fork_block,
+        bomb_delays=((fork_block, 3_000_000),),
+    )
+    kwargs.update(overrides)
+    return KhipuConfig(blockchain=BlockchainConfig(**kwargs))

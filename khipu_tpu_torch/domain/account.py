@@ -48,8 +48,30 @@ class Account:
             big_endian_to_int(nonce), big_endian_to_int(balance), root, code_hash
         )
 
+    def with_nonce(self, nonce: int) -> "Account":
+        return replace(self, nonce=nonce)
+
+    def increase_nonce(self, by: int = 1) -> "Account":
+        return replace(self, nonce=self.nonce + by)
+
     def increase_balance(self, by: int) -> "Account":
         return replace(self, balance=self.balance + by)
+
+    @property
+    def is_empty(self) -> bool:
+        """EIP-161 empty: no code, zero nonce, zero balance. Empty
+        accounts touched during execution are deleted post-tx
+        (Account.scala isEmpty semantics; note storage_root is NOT part
+        of the emptiness test)."""
+        return (
+            self.nonce == 0
+            and self.balance == 0
+            and self.code_hash == EMPTY_CODE_HASH
+        )
+
+    @property
+    def has_code(self) -> bool:
+        return self.code_hash != EMPTY_CODE_HASH
 
 
 @lru_cache(maxsize=1 << 16)

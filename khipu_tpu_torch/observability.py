@@ -6,7 +6,9 @@ movement ledger). This module is what those call sites need:
 
 * ``span(name)`` — a timing context manager; a no-op until
   ``enable()`` is called, then it adds to ``SPAN_TOTALS[name]``
-  (``[count, seconds]`` over every span since the last clear).
+  (``[count, seconds]`` over every span since the last clear), under a
+  lock: the replay driver and its sender-prefetch thread both time
+  ``keccak.*`` spans.
 * ``REGISTRY.gauge_group(name, defaults)`` — a get-or-create dict of
   counters. The port's registry is its own object, so nothing here can
   reset or share a gauge of the JAX package.
@@ -24,6 +26,7 @@ from typing import Deque, Dict, Optional, Tuple
 
 _ENABLED = [False]
 SPAN_TOTALS: Dict[str, list] = {}
+_SPAN_LOCK = threading.Lock()
 
 
 def enable(on: bool = True) -> None:
@@ -39,9 +42,11 @@ def span(name: str):
     try:
         yield
     finally:
-        total = SPAN_TOTALS.setdefault(name, [0, 0.0])
-        total[0] += 1
-        total[1] += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        with _SPAN_LOCK:
+            total = SPAN_TOTALS.setdefault(name, [0, 0.0])
+            total[0] += 1
+            total[1] += dt
 
 
 class _Registry:

@@ -3,13 +3,15 @@ and K1r (messages of any lengths in one blob, the pad fused) in
 ``csrc/keccak.cu``.
 
 ``FIXED_LAUNCHES`` counts K1f's launches and ``RAGGED_LAUNCHES`` K1r's;
-each is raised only where its kernel is launched. The library is built
-at first use (``ops/build.py``); importing this module needs neither
-``nvcc`` nor a card.
+each is raised only where its kernel is launched, under a lock (the
+replay driver and its sender-prefetch thread launch K1r at once). The
+library is built at first use (``ops/build.py``); importing this module
+needs neither ``nvcc`` nor a card.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import numpy as np
@@ -19,6 +21,7 @@ from khipu_tpu_torch.ops import build
 
 FIXED_LAUNCHES = 0
 RAGGED_LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()
 # K1r's column mode (five threads a message) up to this many rows, row
 # mode (one thread a message) above. While a batch's warps (six messages
 # each) fit one to an SM sub-partition (132 SMs x 4 x 6 = 3,168 rows),
@@ -49,7 +52,6 @@ def absorb_fixed(
     """K1f: u8[N, L] unpadded rows of one length L (contiguous, on the
     card) -> u8[N, 32]; the multi-rate pad is XORed in registers. Rows
     are read as u32 words when L % 4 == 0 and as bytes otherwise."""
-    global FIXED_LAUNCHES
     if not data.is_cuda:
         raise ValueError("K1f takes CUDA tensors only")
     if data.dtype != torch.uint8 or data.dim() != 2:
@@ -68,8 +70,14 @@ def absorb_fixed(
     )
     if rc:
         raise RuntimeError(f"K1f keccak kernel launch failed: cudaError {rc}")
-    FIXED_LAUNCHES += 1
+    _count("FIXED_LAUNCHES")
     return out
+
+
+def _count(name: str) -> None:
+    """One more launch on the counter ``name``; safe across threads."""
+    with _COUNT_LOCK:
+        globals()[name] += 1
 
 
 def ragged_mode(n: int) -> str:
@@ -125,7 +133,6 @@ def absorb_ragged(
     uploaded together with the blob. The multi-rate pad is XORed in
     registers. ``mode`` forces "row" or "column"; by default
     ``ragged_mode(n)``."""
-    global RAGGED_LAUNCHES
     if blob.dtype != torch.uint8 or blob.dim() != 1:
         raise ValueError("K1r takes a u8[B] blob")
     if blob.numel() >= 1 << 31:
@@ -156,5 +163,5 @@ def absorb_ragged(
     )
     if rc:
         raise RuntimeError(f"K1r keccak kernel launch failed: cudaError {rc}")
-    RAGGED_LAUNCHES += 1
+    _count("RAGGED_LAUNCHES")
     return out

@@ -3,9 +3,9 @@
 The port's counterpart of ``khipu_tpu.storage.datasource`` (parity:
 khipu-storage/.../datasource/DataSource.scala:6, NodeDataSource.scala:5,
 KeyValueDataSource.scala:3; EphemNodeDataSource is the model for the
-Memory* engines). The chaos plane's ``fault_point`` hooks and the block
-data sources are not carried: the port has no chaos plane and no block
-stores yet.
+Memory* engines; BlockDataSource.scala:3 for the block stores). The
+chaos plane's ``fault_point`` hooks are not carried: the port has no
+chaos plane.
 """
 
 from __future__ import annotations
@@ -60,6 +60,28 @@ class NodeDataSource(KeyValueDataSource):
     """Content-addressed trie-node store: key == keccak256(value)."""
 
 
+class BlockDataSource(DataSource):
+    """block-number -> bytes append store tracking the best number."""
+
+    def get(self, number: int) -> Optional[bytes]:
+        raise NotImplementedError
+
+    def put(self, number: int, value: bytes) -> None:
+        self.update([], {number: value})
+
+    def remove(self, number: int) -> None:
+        self.update([number], {})
+
+    def update(
+        self, to_remove: Iterable[int], to_upsert: Mapping[int, bytes]
+    ) -> None:
+        raise NotImplementedError
+
+    @property
+    def best_block_number(self) -> int:
+        raise NotImplementedError
+
+
 class MemoryKeyValueDataSource(KeyValueDataSource):
     def __init__(self) -> None:
         super().__init__()
@@ -93,6 +115,40 @@ class MemoryKeyValueDataSource(KeyValueDataSource):
 class MemoryNodeDataSource(MemoryKeyValueDataSource, NodeDataSource):
     """In-memory content-addressed node store (EphemNodeDataSource):
     the store ``MerklePatriciaTrie`` reads and persists into."""
+
+
+class MemoryBlockDataSource(BlockDataSource):
+    def __init__(self) -> None:
+        super().__init__()
+        self._map: Dict[int, bytes] = {}
+        self._best = -1
+        self._lock = threading.Lock()
+
+    def get(self, number: int) -> Optional[bytes]:
+        t0 = self.clock.start()
+        try:
+            return self._map.get(int(number))
+        finally:
+            self.clock.elapse(t0)
+
+    def update(self, to_remove, to_upsert) -> None:
+        with self._lock:
+            for n in to_remove:
+                self._map.pop(int(n), None)
+            for n, v in to_upsert.items():
+                self._map[int(n)] = bytes(v)
+                if n > self._best:
+                    self._best = int(n)
+            if to_remove:
+                self._best = max(self._map.keys(), default=-1)
+
+    @property
+    def best_block_number(self) -> int:
+        return self._best
+
+    @property
+    def count(self) -> int:
+        return len(self._map)
 
 
 def verify_content_address(key: bytes, value: bytes) -> bool:

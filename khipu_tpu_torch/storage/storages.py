@@ -1,16 +1,26 @@
-"""Storage façade: the typed node stores and the app state.
+"""Storage façade: the typed node stores, the block stores and the app
+state.
 
 The port's counterpart of ``khipu_tpu.storage.storages`` (parity:
-khipu-eth/.../storage/Storages.scala:6-81). It carries the ``memory``
-engine only, with the account, storage and evmcode node stores and the
-app-state store; the native, sqlite and kesque engines, the block
-stores and the window journal are not ported yet.
+khipu-eth/.../storage/Storages.scala:6-81: account/storage/evmcode
+NodeStorages, header/body/receipts/td block storages, blocknum, tx,
+appState; bestBlockNumber = min(bestBody, bestReceipts) :40). It carries
+the ``memory`` engine only; the native, sqlite and kesque engines and
+the window journal are not ported yet.
 """
 
 from __future__ import annotations
 
 from khipu_tpu_torch.storage.app_state import AppStateStorage
+from khipu_tpu_torch.storage.block_storage import (
+    BlockBytesStorage,
+    BlockNumberStorage,
+    BlockNumbers,
+    TotalDifficultyStorage,
+    TransactionStorage,
+)
 from khipu_tpu_torch.storage.datasource import (
+    MemoryBlockDataSource,
     MemoryKeyValueDataSource,
     MemoryNodeDataSource,
 )
@@ -29,11 +39,30 @@ class Storages:
         self.account_node_storage = NodeStorage(MemoryNodeDataSource())
         self.storage_node_storage = NodeStorage(MemoryNodeDataSource())
         self.evmcode_storage = NodeStorage(MemoryNodeDataSource())
+        self.block_header_storage = BlockBytesStorage(MemoryBlockDataSource())
+        self.block_body_storage = BlockBytesStorage(MemoryBlockDataSource())
+        self.receipts_storage = BlockBytesStorage(MemoryBlockDataSource())
+        self.total_difficulty_storage = TotalDifficultyStorage(
+            MemoryBlockDataSource())
+        self.block_number_storage = BlockNumberStorage(
+            MemoryKeyValueDataSource())
+        self.block_numbers = BlockNumbers(
+            self.block_number_storage, self.block_header_storage)
+        self.transaction_storage = TransactionStorage(
+            MemoryKeyValueDataSource())
         self.app_state = AppStateStorage(MemoryKeyValueDataSource())
         self._node_storages = (
             self.account_node_storage,
             self.storage_node_storage,
             self.evmcode_storage,
+        )
+
+    @property
+    def best_block_number(self) -> int:
+        """min(bestBody, bestReceipts) — Storages.scala:40."""
+        return min(
+            self.block_body_storage.best_block_number,
+            self.receipts_storage.best_block_number,
         )
 
     def attach_mirror(self, mirror) -> None:

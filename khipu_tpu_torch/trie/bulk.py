@@ -57,11 +57,15 @@ def device_hasher(messages: Sequence[bytes], device=None) -> List[bytes]:
     return keccak256_batch(messages, device)
 
 
-def resolve_hasher(hasher: Optional[Hasher], device):
+def resolve_hasher(hasher: Optional[Hasher], device, fused: bool = False):
     """``(device, hasher)`` for an entry point: ``device=None`` means the
     card (raising where there is none), and the default hasher batches
-    on that same device."""
-    device = resolve_device(device)
+    on that same device. The device is resolved only where it is used:
+    by the default hasher and by the ``fused`` fixpoint. An explicit
+    hasher of a level loop hashes where it hashes, and ``device`` is
+    passed back as given."""
+    if hasher is None or fused:
+        device = resolve_device(device)
     if hasher is None:
         hasher = functools.partial(device_hasher, device=device)
     return device, hasher
@@ -174,7 +178,7 @@ def bulk_build(
     """
     from khipu_tpu_torch.trie.mpt import EMPTY_TRIE_HASH
 
-    device, hasher = resolve_hasher(hasher, device)
+    device, hasher = resolve_hasher(hasher, device, fused)
     with _span("bulk.structure"):
         built = build_levels(pairs)
     if built is None:

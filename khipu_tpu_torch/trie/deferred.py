@@ -224,7 +224,7 @@ def finalize(
     (trie/fused.py: kernel K5 on the card, one launch for every level)
     instead of one hasher call per level; ``hasher`` is then unused.
     """
-    device, hasher = resolve_hasher(hasher, device)
+    device, hasher = resolve_hasher(hasher, device, fused)
     # live placeholders: positive log entries with placeholder keys
     live: Dict[bytes, bytes] = {}  # placeholder -> encoded (raw)
     removed: Dict[bytes, List] = {}

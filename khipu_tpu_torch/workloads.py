@@ -12,6 +12,10 @@ drive the same data:
 * ``contract_snapshot`` — BASELINE config #5's source state: a state
   whose every ``CONTRACT_EVERY``-th account is a contract with a storage
   trie and a code blob, as the three node stores a fast sync downloads.
+* Replay chains: ``MAINNET_BLOCK1`` over ``mainnet_genesis_spec``, and
+  fixture chains executed by ``ChainBuilder`` on the host —
+  ``transfer_chain`` (value transfers) and ``erc20_chain`` (a deploy
+  block, then token ``transfer(to, amount)`` calls).
 
 Addresses and slots are hashed in one batch on ``device`` (K1f on the
 card).
@@ -24,8 +28,11 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from khipu_tpu_torch.base import EMPTY_TRIE_HASH
 from khipu_tpu_torch.base.rlp import rlp_encode_int
 from khipu_tpu_torch.domain.account import Account, address_key
+from khipu_tpu_torch.domain.block_header import BlockHeader
+from khipu_tpu_torch.domain.blockchain import GenesisSpec
 from khipu_tpu_torch.ops.keccak import keccak256_batch, keccak256_fixed
 
 Pairs = List[Tuple[bytes, bytes]]
@@ -151,3 +158,201 @@ def snapshot_fetch(stores):
         return out
 
     return fetch
+
+
+# ------------------------------------------------------------- replay
+
+# Mainnet genesis and block 1: real chain data. Block 1's header is
+# authenticated by its Ethash seal (mined 2015-07-30 at difficulty
+# 17,171,480,576), so its state root is an oracle this repo did not
+# produce.
+MAINNET_GENESIS_HASH = bytes.fromhex(
+    "d4e56740f876aef8c010b86a40d5f56745a118d0906a34e69aec8c0db1cb8fa3"
+)
+MAINNET_BLOCK1_HASH = bytes.fromhex(
+    "88e96d4537bea4d9c05d12549907b32561d3bf31f45aae734cdc119f13406cb6"
+)
+MAINNET_BLOCK1 = BlockHeader(
+    parent_hash=MAINNET_GENESIS_HASH,
+    ommers_hash=bytes.fromhex(
+        "1dcc4de8dec75d7aab85b567b6ccd41ad312451b948a7413f0a142fd40d49347"
+    ),
+    beneficiary=bytes.fromhex("05a56e2d52c817161883f50c441c3228cfe54d9f"),
+    state_root=bytes.fromhex(
+        "d67e4d450343046425ae4271474353857ab860dbc0a1dde64b41b5cd3a532bf3"
+    ),
+    transactions_root=EMPTY_TRIE_HASH,
+    receipts_root=EMPTY_TRIE_HASH,
+    logs_bloom=b"\x00" * 256,
+    difficulty=17_171_480_576,
+    number=1,
+    gas_limit=5000,
+    gas_used=0,
+    unix_timestamp=1_438_269_988,
+    extra_data=bytes.fromhex(
+        "476574682f76312e302e302f6c696e75782f676f312e342e32"
+    ),  # "Geth/v1.0.0/linux/go1.4.2"
+    mix_hash=bytes.fromhex(
+        "969b900de27b6ac6a67742365dd65f55a0526c41fd18e1b16f1a1215c2e66f59"
+    ),
+    nonce=bytes.fromhex("539bd4979fef1ec4"),
+)
+
+
+def mainnet_genesis_spec(path: str) -> GenesisSpec:
+    """``path``: the gzip alloc file ``genesis_pairs`` reads."""
+    with gzip.open(path, "rt") as f:
+        alloc = {bytes.fromhex(a): int(b) for a, b in map(str.split, f)}
+    return GenesisSpec(
+        alloc=alloc,
+        difficulty=0x400000000,
+        gas_limit=0x1388,
+        timestamp=0,
+        extra_data=bytes.fromhex(
+            "11bbe8db4e347b4e8c937c1c8370e4b5ed33adb3db69cbdb7a38e1e50b1b82fa"
+        ),
+        nonce=bytes.fromhex("0000000000000042"),
+    )
+
+
+# ERC-20 transfer(to, amount) with real keccak mapping slots: balances
+# live at keccak(pad32(holder) ++ pad32(0)); the sender's slot is
+# debited by the amount word (wrapping, as EVM SUB does), the
+# recipient's credited. Calldata is the raw two words (no ABI
+# selector): arg0 = recipient, arg1 = amount.
+ERC20_RUNTIME = bytes([
+    0x33,                    # CALLER
+    0x60, 0x00, 0x52,        # PUSH1 0  MSTORE   mem[0:32] = caller
+    0x60, 0x00,              # PUSH1 0  (mapping base slot)
+    0x60, 0x20, 0x52,        # PUSH1 32 MSTORE   mem[32:64] = 0
+    0x60, 0x40, 0x60, 0x00,  # PUSH1 64 PUSH1 0
+    0x20,                    # SHA3              sender slot
+    0x80, 0x54,              # DUP1 SLOAD        sender balance
+    0x60, 0x20, 0x35,        # PUSH1 32 CALLDATALOAD   amount
+    0x90, 0x03,              # SWAP1 SUB         bal - amount
+    0x90, 0x55,              # SWAP1 SSTORE      debit sender
+    0x60, 0x00, 0x35,        # PUSH1 0 CALLDATALOAD    recipient
+    0x60, 0x00, 0x52,        # PUSH1 0  MSTORE   mem[0:32] = recipient
+    0x60, 0x40, 0x60, 0x00,  # PUSH1 64 PUSH1 0  (mem[32:64] still 0)
+    0x20,                    # SHA3              recipient slot
+    0x80, 0x54,              # DUP1 SLOAD        recipient balance
+    0x60, 0x20, 0x35,        # PUSH1 32 CALLDATALOAD   amount
+    0x01,                    # ADD               bal + amount
+    0x90, 0x55,              # SWAP1 SSTORE      credit recipient
+    0x00,                    # STOP
+])
+# constructor: CODECOPY the runtime out of the init code and return it
+ERC20_INIT = bytes([
+    0x60, len(ERC20_RUNTIME),  # PUSH1 len
+    0x60, 0x0C,                # PUSH1 12 (runtime offset in init code)
+    0x60, 0x00,                # PUSH1 0
+    0x39,                      # CODECOPY
+    0x60, len(ERC20_RUNTIME),  # PUSH1 len
+    0x60, 0x00,                # PUSH1 0
+    0xF3,                      # RETURN
+]) + ERC20_RUNTIME
+
+COINBASE = b"\xaa" * 20
+# room for 200 token calls a block at a 100,000 gas limit each
+# (mainnet's limit was 30M at blocks 15.50M-15.51M)
+REPLAY_GAS_LIMIT = 30_000_000
+
+
+def replay_config(**sync):
+    """Every fork active from genesis (``fixture_config``), serial
+    execution, one block a commit; ``sync`` overrides ``SyncConfig``
+    fields."""
+    import dataclasses
+
+    from khipu_tpu_torch.config import SyncConfig, fixture_config
+
+    fields = dict(parallel_tx=False, commit_window_blocks=1)
+    fields.update(sync)
+    return dataclasses.replace(fixture_config(chain_id=1),
+                               sync=SyncConfig(**fields))
+
+
+def replay_keys(n: int, seed_base: int = 1):
+    """``n`` private keys ``seed_base .. seed_base + n - 1`` (32 B big
+    endian) and their addresses."""
+    from khipu_tpu_torch.base.secp256k1 import (
+        privkey_to_pubkey,
+        pubkey_to_address,
+    )
+
+    keys = [(i + seed_base).to_bytes(32, "big") for i in range(n)]
+    return keys, [pubkey_to_address(privkey_to_pubkey(k)) for k in keys]
+
+
+def _builder(cfg, alloc):
+    from khipu_tpu_torch.domain.blockchain import Blockchain
+    from khipu_tpu_torch.storage.storages import Storages
+    from khipu_tpu_torch.sync.chain_builder import ChainBuilder
+
+    spec = GenesisSpec(alloc=alloc, gas_limit=REPLAY_GAS_LIMIT)
+    return ChainBuilder(Blockchain(Storages(), cfg), cfg, spec), spec
+
+
+def transfer_chain(cfg, n_blocks: int, txs_per_block: int,
+                   senders: int = 16):
+    """``n_blocks`` blocks of ``txs_per_block`` value transfers, executed
+    on the host: ``senders`` funded keys take turns, each transfer pays
+    a varying value to a fresh address (a new account). Returns
+    ``(builder, genesis spec, blocks)``."""
+    from khipu_tpu_torch.domain.transaction import (
+        Transaction,
+        sign_transaction,
+    )
+
+    keys, addrs = replay_keys(senders, seed_base=301)
+    builder, spec = _builder(cfg, {a: 10**24 for a in addrs})
+    nonces = [0] * senders
+    blocks = []
+    for n in range(n_blocks):
+        txs = []
+        for j in range(txs_per_block):
+            i = (n * txs_per_block + j) % senders
+            to = (0xE1000000 + n * txs_per_block + j).to_bytes(20, "big")
+            tx = Transaction(nonces[i], 10**9, 21_000, to,
+                             10**15 + 7 * n + j)
+            txs.append(sign_transaction(tx, keys[i], chain_id=1))
+            nonces[i] += 1
+        blocks.append(builder.add_block(txs, coinbase=COINBASE))
+    return builder, spec, blocks
+
+
+def erc20_chain(cfg, n_blocks: int, txs_per_block: int, holders: int):
+    """A deploy block, then ``n_blocks`` blocks of ``txs_per_block``
+    token ``transfer(to, amount)`` calls against one ``ERC20_RUNTIME``
+    contract, executed on the host: one call a sender a block
+    (``txs_per_block`` distinct senders), recipients drawn in turn from
+    ``holders`` addresses, amounts varying per call. Returns
+    ``(builder, genesis spec, blocks)``."""
+    from khipu_tpu_torch.domain.transaction import (
+        Transaction,
+        contract_address,
+        sign_transaction,
+    )
+
+    keys, addrs = replay_keys(txs_per_block, seed_base=501)
+    builder, spec = _builder(cfg, {a: 10**24 for a in addrs})
+    token = contract_address(addrs[0], 0)
+    holder_addrs = [(0xE20E2000 + i).to_bytes(20, "big")
+                    for i in range(holders)]
+    deploy = Transaction(0, 10**9, 500_000, None, 0, payload=ERC20_INIT)
+    blocks = [builder.add_block([sign_transaction(deploy, keys[0],
+                                                  chain_id=1)],
+                                coinbase=COINBASE)]
+    nonces = [1] + [0] * (txs_per_block - 1)
+    for n in range(n_blocks):
+        txs = []
+        for j in range(txs_per_block):
+            rcpt = holder_addrs[(j + n * 7) % holders]
+            amount = 1_000 + 13 * j + n
+            payload = rcpt.rjust(32, b"\x00") + amount.to_bytes(32, "big")
+            tx = Transaction(nonces[j], 10**9, 100_000, token, 0,
+                             payload=payload)
+            txs.append(sign_transaction(tx, keys[j], chain_id=1))
+            nonces[j] += 1
+        blocks.append(builder.add_block(txs, coinbase=COINBASE))
+    return builder, spec, blocks

@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
-"""Profile the port's state-root pipeline on one NVIDIA card.
+"""Profile the port's main-path workloads on one NVIDIA card.
 
     python3 scripts/torch_profile.py [--seed N] [--out DIR]
 
 Runs main-path workloads of ``chip_smoke.py`` on the card — a fresh
 100,000-account ``bulk_build(fused=True)``, a 16-block x 400-write
-window ``finalize(fused=True, return_mapping=True)`` and a fast sync of
-that state with 1,000 contracts into a ``DeviceNodeMirror`` — once with
-only the port's spans on, then once under ``torch.profiler``. For
-each it prints one JSON line: host wall seconds, span seconds, the
+window ``finalize(fused=True, return_mapping=True)``, a fast sync of
+that state with 1,000 contracts into a ``DeviceNodeMirror``, and the
+serial replays with ``device_commit`` (128 blocks of one value transfer,
+and a deploy block then 16 blocks of 200 ERC-20 transfers, each built on
+the host first and replayed into a fresh chain, sender cache cold) —
+once with only the port's spans on, then once under ``torch.profiler``.
+For each it prints one JSON line: host wall seconds, span seconds, the
 device's busy seconds (the union of device activity intervals in the
 trace), the device's idle share of the profiled wall time, device time
 by kernel name, and the launches, device time and share of the busy
 time of K5 (the fixpoint kernel) and of K1r (the batched sponge of fast
-sync's content check). Chrome traces go to ``DIR`` (default
-``_profiles/``, which ``.gitignore`` lists). Exits 2 without a card.
+sync's content check and of the replays' trie commits and sender
+batches); the replays also give K1r's device ms a block. Chrome traces
+go to ``DIR`` (default ``_profiles/``, which ``.gitignore`` lists).
+Exits 2 without a card.
 """
 
 from __future__ import annotations
@@ -98,12 +103,16 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from khipu_tpu_torch import observability, workloads
+    from khipu_tpu_torch.domain.block import Block
+    from khipu_tpu_torch.domain.blockchain import Blockchain
     from khipu_tpu_torch.ops import build
     from khipu_tpu_torch.state import load_reference_nodes
     from khipu_tpu_torch.storage.datasource import MemoryKeyValueDataSource
     from khipu_tpu_torch.storage.device_mirror import TILE, DeviceNodeMirror
     from khipu_tpu_torch.storage.storages import Storages
+    from khipu_tpu_torch.sync import prefetch
     from khipu_tpu_torch.sync.fast_sync import FastSyncStateStorage, StateSyncer
+    from khipu_tpu_torch.sync.replay import ReplayDriver
     from khipu_tpu_torch.trie import bulk, deferred
 
     print(subprocess.run(
@@ -131,9 +140,18 @@ def main() -> int:
             torch.cuda.synchronize()
             pwall = time.perf_counter() - t0
         prof.export_chrome_trace(os.path.join(args.out, f"{name}.json"))
-        emit({"workload": name, "wall_s": wall, "spans_s": spans,
-              "profiled_wall_s": pwall, **device_profile(torch, prof, pwall),
-              **extra})
+        line = {"workload": name, "wall_s": wall, "spans_s": spans,
+                "profiled_wall_s": pwall, **device_profile(torch, prof, pwall),
+                **extra}
+        if "blocks" in extra:
+            line["k1r_device_ms_per_block"] = (line["k1r"]["device_ms"]
+                                               / extra["blocks"])
+            line["k1r_launches_per_block"] = (line["k1r"]["launches"]
+                                              / extra["blocks"])
+        if hasattr(result, "phases"):  # a replay's ReplayStats
+            line["phases_s"] = result.phases
+            line["blocks_per_s"] = result.blocks_per_s
+        emit(line)
         return result
 
     pairs = workloads.fresh_state_pairs(args.accounts, device=dev)
@@ -170,6 +188,26 @@ def main() -> int:
                                   device=dev),
         blocks=args.blocks, writes=args.writes,
     )
+
+    cfg = workloads.replay_config()
+    for name, (_, spec, blocks) in (
+        ("replay_transfers_128x1", workloads.transfer_chain(cfg, 128, 1)),
+        ("replay_erc20_16x200", workloads.erc20_chain(cfg, 16, 200, 256)),
+    ):
+        wire = [b.encode() for b in blocks]
+        targets = []
+        for _ in range(2):  # one chain for each of measure's two runs
+            targets.append(Blockchain(Storages(), cfg))
+            targets[-1].load_genesis(spec, on_device=True, device=dev)
+
+        def run():
+            prefetch.flush_sender_cache()
+            return ReplayDriver(targets.pop(0), cfg, device_commit=True,
+                                device=dev).replay(
+                [Block.decode(w) for w in wire])
+
+        measure(name, run, blocks=len(blocks),
+                txs=sum(len(b.body.transactions) for b in blocks))
     return 0
 
 

@@ -11,6 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from khipu_tpu_torch import workloads
+from khipu_tpu_torch.domain.blockchain import Blockchain, GenesisSpec
+from khipu_tpu_torch.domain.transaction import SignedTransaction
 from khipu_tpu_torch.ops import build, keccak_cuda
 from khipu_tpu_torch.ops.keccak import (
     keccak256_batch,
@@ -22,6 +25,8 @@ from khipu_tpu_torch.storage.datasource import MemoryKeyValueDataSource
 from khipu_tpu_torch.storage.device_mirror import DeviceNodeMirror
 from khipu_tpu_torch.storage.storages import Storages
 from khipu_tpu_torch.sync.fast_sync import FastSyncStateStorage, StateSyncer
+from khipu_tpu_torch.sync.prefetch import recover_block_senders
+from khipu_tpu_torch.sync.replay import ReplayDriver
 from khipu_tpu_torch.trie import bulk, deferred, fixpoint_cuda, fused
 from khipu_tpu_torch.trie.mpt import MerklePatriciaTrie
 from khipu_tpu_torch.state import load_reference_nodes
@@ -60,6 +65,21 @@ def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
+def _chain():
+    return Blockchain(Storages(), workloads.replay_config())
+
+
+def _signed_tx():
+    from khipu_tpu_torch.domain.transaction import (
+        Transaction,
+        sign_transaction,
+    )
+
+    stx = sign_transaction(Transaction(0, 1, 21000, b"b" * 20, 1),
+                           b"\x01" * 32, chain_id=1)
+    return SignedTransaction.decode(stx.encode())  # no cached sender
+
+
 def _session():
     d = deferred.DeferredMPT(load_reference_nodes({}))
     for i in range(4):
@@ -88,10 +108,17 @@ def _session():
         Storages(), FastSyncStateStorage(MemoryKeyValueDataSource()),
         lambda want: {},
     ).start(b"\x00" * 32),
+    lambda: ReplayDriver(_chain(), workloads.replay_config()),
+    lambda: ReplayDriver(_chain(), workloads.replay_config(),
+                         device_commit=True),
+    lambda: _chain().load_genesis(GenesisSpec(alloc={b"a" * 20: 1}),
+                                  on_device=True),
+    lambda: recover_block_senders([_signed_tx()], batch_hash=True),
 ], ids=["batch", "batch-cuda", "fixed", "device_hasher", "bulk_fused",
         "bulk_levels", "finalize_fused", "finalize_levels", "commit",
         "batch_commit", "fused_submit", "device_fixed", "device_fixed_words",
-        "mirror", "state_syncer"])
+        "mirror", "state_syncer", "replay_driver", "replay_device_commit",
+        "genesis_on_device", "sender_batch_hash"])
 def test_entry_points_raise_without_card(no_card, call):
     with pytest.raises(RuntimeError, match="is_available"):
         call()
@@ -184,6 +211,25 @@ def test_ragged_wrapper_checks_before_launch(call, match):
     with pytest.raises(ValueError, match=match):
         call()
     assert keccak_cuda.RAGGED_LAUNCHES == before
+
+
+def test_native_sources_include_nothing_of_the_reference():
+    """The copied C++ (and the CUDA sources) include only system headers
+    and headers beside them in the port."""
+    import re
+
+    srcs = sorted(build.PKG.glob("*/csrc/*.c*"))
+    assert {p.name for p in srcs} >= {"keccak.cc", "secp256k1.cc",
+                                      "keccak.cu", "keccak_f1600.cuh"}
+    for src in srcs:
+        for inc in re.findall(r'#include\s*([<"][^>"]+[>"])', src.read_text()):
+            if inc.startswith('"'):
+                local = (src.parent / inc[1:-1]).resolve()
+                assert local.exists() and build.PKG in local.parents, (src, inc)
+            else:
+                assert "khipu" not in inc, (src, inc)
+        assert "khipu_tpu/" not in src.read_text().replace(
+            "khipu_tpu_torch/", ""), src
 
 
 def test_ragged_mode_switch():
