@@ -1,11 +1,11 @@
 """Configuration tree — one dataclass hierarchy for the whole node.
 
 The port's copy of ``khipu_tpu.config``, every default the same, cut to
-the fields the port reads: the chain's fork schedule and the serial
-replay's sync knobs. A section or field comes back with the module that
-reads it. The unported values of the fields kept raise where they are
-read (``parallel_tx`` with more than one transaction in a block,
-``commit_window_blocks > 1``).
+the fields the port reads: the chain's fork schedule and the replay's
+sync knobs (serial execution, the windowed commit pipeline, the commit
+journal and the adaptive controller). A section or field comes back with
+the module that reads it. An unported value of a field kept raises where
+it is read (``parallel_tx`` with more than one transaction in a block).
 
 Parity: config/KhipuConfig.scala:20-120 (nested Network/Sync/Db accessor
 objects over HOCON) and BlockchainConfig :185 (fork block numbers,
@@ -109,9 +109,55 @@ class SyncConfig:
     # host hashes). Host keccak is native C, so with device="cpu" this
     # knob is a no-op
     sender_batch_hash: bool = True
-    # blocks batched per device trie commit; the port replays 1 and
-    # raises for more (the windowed pipeline is not ported)
-    commit_window_blocks: int = 1
+    commit_window_blocks: int = 1  # blocks batched per device trie commit
+    # windows sealed-but-uncollected allowed in flight: the driver
+    # seals window N+1 (cross-window refs ride the dispatch as
+    # resolved-input tiles) while the background collector checks roots
+    # and persists window N. 1 = seal/collect lockstep, still off the
+    # driver thread
+    pipeline_depth: int = 2
+    # write-ahead window-commit journal (sync/journal.py): an intent
+    # record lands before the background collector's first mutation, a
+    # commit mark after best advances
+    commit_journal: bool = True
+    # a dead collector thread (detected by liveness checks in
+    # submit/drain) degrades the driver to synchronous commits instead
+    # of aborting the replay; False = abort with CollectorDied
+    degrade_on_collector_death: bool = True
+    # close()/kill() raise/warn when the worker outlives this join
+    collector_join_timeout: float = 60.0
+    # device-resident window commit (storage/device_mirror.py): the
+    # collect stage admits the window's live nodes into the device
+    # mirror card-to-card and only the async persist stage spills them
+    # to host storage — the collect stage's device-to-host traffic is
+    # the 32 B/block root fetch. Requires device_commit
+    device_mirror_commit: bool = True
+    # mirror ring capacity in rows per size class (1024-row multiples)
+    mirror_capacity_rows: int = 16384
+    # cost-model-adaptive commit (sync/adaptive.py): an EWMA controller
+    # over the per-window seal cost falls device_mirror_commit back to
+    # the host hasher when the device path is slower than the host.
+    # device_mirror_commit stays the CAP — adaptive only ever downgrades
+    # device -> host. Off by default here (on in the JAX package): on
+    # the H100 its probe and trigger read launch noise and moved whole
+    # replays to the host hasher at half the speed (PERF.md)
+    adaptive_commit: bool = False
+    # one-shot backend probe at controller construction: time a
+    # card-to-card gather against the equivalent host memcpy; device
+    # mode engages only when the card wins by adaptive_d2d_margin.
+    # False skips the probe
+    adaptive_probe: bool = True
+    adaptive_d2d_margin: float = 1.5
+    # EWMA smoothing over per-window per-hash seal cost observations
+    adaptive_ewma_alpha: float = 0.4
+    # Schmitt trigger: flip device -> host when the device EWMA
+    # exceeds flip_ratio x the host estimate; flip back only below
+    # flip_back_ratio x (hysteresis band kills oscillation)
+    adaptive_flip_ratio: float = 2.0
+    adaptive_flip_back_ratio: float = 0.5
+    # windows a new mode must dwell before the controller may flip
+    # again (flap suppression)
+    adaptive_dwell_windows: int = 6
     # opcode-level trace for ONE block number (debug-trace-at;
     # VM.scala:40-57) — that block runs sequentially with a per-op line
     debug_trace_at: Optional[int] = None

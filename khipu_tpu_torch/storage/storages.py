@@ -4,9 +4,9 @@ state.
 The port's counterpart of ``khipu_tpu.storage.storages`` (parity:
 khipu-eth/.../storage/Storages.scala:6-81: account/storage/evmcode
 NodeStorages, header/body/receipts/td block storages, blocknum, tx,
-appState; bestBlockNumber = min(bestBody, bestReceipts) :40). It carries
-the ``memory`` engine only; the native, sqlite and kesque engines and
-the window journal are not ported yet.
+appState; bestBlockNumber = min(bestBody, bestReceipts) :40) and the
+window-commit journal's topic. It carries the ``memory`` engine only;
+the native, sqlite and kesque engines are not ported yet.
 """
 
 from __future__ import annotations
@@ -51,11 +51,25 @@ class Storages:
         self.transaction_storage = TransactionStorage(
             MemoryKeyValueDataSource())
         self.app_state = AppStateStorage(MemoryKeyValueDataSource())
+        # write-ahead window-commit journal records (sync/journal.py);
+        # same engine and durability as the block stores
+        self.journal_source = MemoryKeyValueDataSource()
+        self._window_journal = None
         self._node_storages = (
             self.account_node_storage,
             self.storage_node_storage,
             self.evmcode_storage,
         )
+
+    @property
+    def window_journal(self):
+        """The crash-consistency WAL (lazy: sync/journal.py stays out of
+        the storage layer's import graph)."""
+        if self._window_journal is None:
+            from khipu_tpu_torch.sync.journal import WindowJournal
+
+            self._window_journal = WindowJournal(self.journal_source)
+        return self._window_journal
 
     @property
     def best_block_number(self) -> int:

@@ -179,7 +179,10 @@ def pack(to_resolve, prefix, device, ext_pos=None, n_ext=0,
     """Host pack + upload: bucket the encodings by rate class, pad them,
     scan each for the placeholder prefix and build the triples and their
     level plan. Returns (classes, dpos: ph -> global row, total_rows,
-    plan)."""
+    plan). ``ext_pos`` maps a placeholder outside ``to_resolve`` to its
+    row of the resolved-input tile, which holds ``n_ext`` rows; an
+    ``ExtRows`` assigns the rows as the scan meets the refs (pass
+    ``n_ext=None``)."""
     buckets: Dict[int, List[bytes]] = {}
     for ph in to_resolve:
         buckets.setdefault(len(to_resolve[ph]) // RATE + 1, []).append(ph)
@@ -194,7 +197,8 @@ def pack(to_resolve, prefix, device, ext_pos=None, n_ext=0,
         base += len(c.keys) + 1  # one spare filler row per class
         classes.append(c)
     total_rows = base
-    ext_pos = ext_pos or {}
+    if ext_pos is None:
+        ext_pos = {}
 
     # (global parent row, offset, child), in row order: sorted by parent
     subs: List[Tuple[int, int, int]] = []
@@ -216,7 +220,7 @@ def pack(to_resolve, prefix, device, ext_pos=None, n_ext=0,
                 if cp is None:
                     ep = ext_pos.get(ref)
                     if ep is not None:
-                        if not 0 <= ep < n_ext:
+                        if ep < 0 or (n_ext is not None and ep >= n_ext):
                             raise ValueError(f"ext row {ep} outside [0, {n_ext})")
                         cp = total_rows + ep  # resolved-input tile row
                 if cp is not None:
@@ -409,6 +413,64 @@ class FusedJob:
         return out
 
 
+class ExtRows:
+    """The resolved-input tile of a launch whose refs out of the window
+    are found by ``pack``'s scan: ``get(ref)`` gives ``ref`` the next
+    tile row the first time ``lookup(ref)`` knows its digest, either as
+    32 bytes on the host or as ``(digests tensor, row)`` of an earlier
+    launch still on the device; None leaves the ref unsubstituted.
+    ``tile(device)`` then builds u8[n, 32] in row order: device rows by
+    ``index_select`` card to card, host digests by one upload."""
+
+    __slots__ = ("lookup", "pos", "src")
+
+    def __init__(self, lookup):
+        self.lookup = lookup
+        self.pos: Dict[bytes, int] = {}
+        self.src: list = []
+
+    def get(self, ref: bytes) -> Optional[int]:
+        row = self.pos.get(ref)
+        if row is None:
+            src = self.lookup(ref)
+            if src is None:
+                return None
+            row = self.pos[ref] = len(self.src)
+            self.src.append(src)
+        return row
+
+    def tile(self, device) -> torch.Tensor:
+        out = torch.empty((len(self.src), 32), dtype=torch.uint8,
+                          device=device)
+        host_rows: List[int] = []
+        host_digests: List[bytes] = []
+        groups: Dict[int, Tuple[torch.Tensor, List[int], List[int]]] = {}
+        for i, src in enumerate(self.src):
+            if isinstance(src, bytes):
+                host_rows.append(i)
+                host_digests.append(src)
+            else:
+                digests, row = src
+                g = groups.setdefault(id(digests), (digests, [], []))
+                g[1].append(i)
+                g[2].append(row)
+
+        def idx(rows):
+            return torch.tensor(rows, dtype=torch.long, device=device)
+
+        with _span("seal.alias_gather"):
+            for digests, rows, src_rows in groups.values():
+                out.index_copy_(0, idx(rows),
+                                digests.index_select(0, idx(src_rows)))
+            if host_rows:
+                blob = np.frombuffer(bytearray(b"".join(host_digests)),
+                                     np.uint8)
+                out.index_copy_(0, idx(host_rows),
+                                torch.from_numpy(blob.reshape(-1, 32))
+                                .to(device))
+        return out
+
+
 def fused_resolve(
     to_resolve: Dict[bytes, bytes],
     deps: Dict[bytes, List[bytes]],
@@ -439,10 +501,11 @@ def fused_submit(
     of levels found: a smaller one raises ValueError. No depth is
     compiled in: K5 walks every level in one launch.
 
-    ``ext``: optional ``(digests, pos)`` resolved-input tile — a device
-    u8[n, 32] tensor of FINAL digests from earlier windows and a
-    ``ph -> row`` map. Encodings that embed those placeholders get them
-    substituted on the device from the tile.
+    ``ext``: optional resolved-input tile — a ``(digests, pos)`` pair of
+    a device u8[n, 32] tensor of FINAL digests from earlier windows and
+    a ``ph -> row`` map, or an ``ExtRows`` that the scan fills and that
+    is gathered after it. Encodings that embed those placeholders get
+    them substituted on the device from the tile.
 
     ``admit_live``: optional set of placeholders whose FINAL encodings
     and digests the caller wants gathered into whole mirror tiles
@@ -459,19 +522,24 @@ def _fused_submit(to_resolve, prefix, dev, depth, ext,
                   admit_live) -> FusedJob:
     if not to_resolve:
         return FusedJob(None, [])
-    if ext is not None:
+    ext_dev = None
+    if isinstance(ext, ExtRows):
+        ext_pos, n_ext = ext, None
+    elif ext is not None:
         ext_dev, ext_pos = ext
         if ext_dev.device != dev or ext_dev.dtype != torch.uint8:
             raise ValueError("ext must be a u8[n, 32] tensor on the device")
+        n_ext = int(ext_dev.shape[0])
     else:
-        ext_dev = torch.zeros((0, 32), dtype=torch.uint8, device=dev)
-        ext_pos = {}
+        ext_pos, n_ext = {}, 0
 
     with _span("seal.dispatch_build"):
         classes, dpos, total_rows, plan = pack(
-            to_resolve, prefix, dev, ext_pos, int(ext_dev.shape[0]),
-            admit_live,
+            to_resolve, prefix, dev, ext_pos, n_ext, admit_live,
         )
+    if ext_dev is None:
+        ext_dev = (ext.tile(dev) if ext is not None else
+                   torch.zeros((0, 32), dtype=torch.uint8, device=dev))
     if depth is not None and depth < plan.nlevels:
         raise ValueError(f"depth {depth} < the DAG's {plan.nlevels} levels")
     with _span("seal.upload"):

@@ -293,6 +293,12 @@ def _builder(cfg, alloc):
     return ChainBuilder(Blockchain(Storages(), cfg), cfg, spec), spec
 
 
+def bulk_alloc(n: int):
+    """bulk_100k's accounts as a genesis alloc: ``n`` addresses
+    ``(2**32 + i).to_bytes(20, "big")`` holding ``10**18 + i`` wei."""
+    return {(2**32 + i).to_bytes(20, "big"): 10**18 + i for i in range(n)}
+
+
 def transfer_chain(cfg, n_blocks: int, txs_per_block: int,
                    senders: int = 16):
     """``n_blocks`` blocks of ``txs_per_block`` value transfers, executed
@@ -321,12 +327,15 @@ def transfer_chain(cfg, n_blocks: int, txs_per_block: int,
     return builder, spec, blocks
 
 
-def erc20_chain(cfg, n_blocks: int, txs_per_block: int, holders: int):
+def erc20_chain(cfg, n_blocks: int, txs_per_block: int, holders: int,
+                extra_alloc=None):
     """A deploy block, then ``n_blocks`` blocks of ``txs_per_block``
     token ``transfer(to, amount)`` calls against one ``ERC20_RUNTIME``
     contract, executed on the host: one call a sender a block
     (``txs_per_block`` distinct senders), recipients drawn in turn from
-    ``holders`` addresses, amounts varying per call. Returns
+    ``holders`` addresses, amounts varying per call. ``extra_alloc``
+    (address -> balance) adds accounts to the genesis, which gives the
+    account trie a realistic depth (``bulk_alloc``). Returns
     ``(builder, genesis spec, blocks)``."""
     from khipu_tpu_torch.domain.transaction import (
         Transaction,
@@ -335,7 +344,9 @@ def erc20_chain(cfg, n_blocks: int, txs_per_block: int, holders: int):
     )
 
     keys, addrs = replay_keys(txs_per_block, seed_base=501)
-    builder, spec = _builder(cfg, {a: 10**24 for a in addrs})
+    alloc = dict(extra_alloc or {})
+    alloc.update({a: 10**24 for a in addrs})
+    builder, spec = _builder(cfg, alloc)
     token = contract_address(addrs[0], 0)
     holder_addrs = [(0xE20E2000 + i).to_bytes(20, "big")
                     for i in range(holders)]

@@ -9,16 +9,21 @@ window ``finalize(fused=True, return_mapping=True)``, a fast sync of
 that state with 1,000 contracts into a ``DeviceNodeMirror``, and the
 serial replays with ``device_commit`` (128 blocks of one value transfer,
 and a deploy block then 16 blocks of 200 ERC-20 transfers, each built on
-the host first and replayed into a fresh chain, sender cache cold) —
-once with only the port's spans on, then once under ``torch.profiler``.
+the host first and replayed into a fresh chain, sender cache cold) and
+the ERC-20 chain again through the windowed pipeline at
+``commit_window_blocks=8`` (``replay_erc20_w8``, at the port's defaults:
+no adaptive controller, so every window runs K5; the line gives the
+adaptive probe's readout in this process) — once with only the port's spans on, then once under
+``torch.profiler``.
 For each it prints one JSON line: host wall seconds, span seconds, the
 device's busy seconds (the union of device activity intervals in the
 trace), the device's idle share of the profiled wall time, device time
 by kernel name, and the launches, device time and share of the busy
 time of K5 (the fixpoint kernel) and of K1r (the batched sponge of fast
 sync's content check and of the replays' trie commits and sender
-batches); the replays also give K1r's device ms a block. Chrome traces
-go to ``DIR`` (default ``_profiles/``, which ``.gitignore`` lists).
+batches); the replays also give K1r's and K5's device ms a block.
+Chrome traces go to ``DIR`` (default ``_profiles/``, which
+``.gitignore`` lists).
 Exits 2 without a card.
 """
 
@@ -110,7 +115,7 @@ def main() -> int:
     from khipu_tpu_torch.storage.datasource import MemoryKeyValueDataSource
     from khipu_tpu_torch.storage.device_mirror import TILE, DeviceNodeMirror
     from khipu_tpu_torch.storage.storages import Storages
-    from khipu_tpu_torch.sync import prefetch
+    from khipu_tpu_torch.sync import adaptive, prefetch
     from khipu_tpu_torch.sync.fast_sync import FastSyncStateStorage, StateSyncer
     from khipu_tpu_torch.sync.replay import ReplayDriver
     from khipu_tpu_torch.trie import bulk, deferred
@@ -144,10 +149,11 @@ def main() -> int:
                 "profiled_wall_s": pwall, **device_profile(torch, prof, pwall),
                 **extra}
         if "blocks" in extra:
-            line["k1r_device_ms_per_block"] = (line["k1r"]["device_ms"]
-                                               / extra["blocks"])
-            line["k1r_launches_per_block"] = (line["k1r"]["launches"]
-                                              / extra["blocks"])
+            for k in ("k1r", "k5"):
+                line[f"{k}_device_ms_per_block"] = (line[k]["device_ms"]
+                                                    / extra["blocks"])
+                line[f"{k}_launches_per_block"] = (line[k]["launches"]
+                                                   / extra["blocks"])
         if hasattr(result, "phases"):  # a replay's ReplayStats
             line["phases_s"] = result.phases
             line["blocks_per_s"] = result.blocks_per_s
@@ -190,9 +196,12 @@ def main() -> int:
     )
 
     cfg = workloads.replay_config()
-    for name, (_, spec, blocks) in (
-        ("replay_transfers_128x1", workloads.transfer_chain(cfg, 128, 1)),
-        ("replay_erc20_16x200", workloads.erc20_chain(cfg, 16, 200, 256)),
+    erc20 = workloads.erc20_chain(cfg, 16, 200, 256)
+    for name, cfg, (_, spec, blocks) in (
+        ("replay_transfers_128x1", cfg, workloads.transfer_chain(cfg, 128, 1)),
+        ("replay_erc20_16x200", cfg, erc20),
+        ("replay_erc20_w8", workloads.replay_config(commit_window_blocks=8),
+         erc20),
     ):
         wire = [b.encode() for b in blocks]
         targets = []
@@ -200,14 +209,20 @@ def main() -> int:
             targets.append(Blockchain(Storages(), cfg))
             targets[-1].load_genesis(spec, on_device=True, device=dev)
 
-        def run():
+        def run(cfg=cfg, targets=targets, wire=wire):
             prefetch.flush_sender_cache()
             return ReplayDriver(targets.pop(0), cfg, device_commit=True,
                                 device=dev).replay(
                 [Block.decode(w) for w in wire])
 
+        extra = {}
+        if cfg.sync.commit_window_blocks > 1:
+            probe = adaptive.probe_backend(cfg.sync.adaptive_d2d_margin, dev)
+            extra["probe"] = {"device_ok": probe.device_ok,
+                              "d2d_bytes_per_s": probe.d2d_bytes_per_s,
+                              "memcpy_bytes_per_s": probe.memcpy_bytes_per_s}
         measure(name, run, blocks=len(blocks),
-                txs=sum(len(b.body.transactions) for b in blocks))
+                txs=sum(len(b.body.transactions) for b in blocks), **extra)
     return 0
 
 

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from khipu_tpu_torch import workloads
+from khipu_tpu_torch.config import SyncConfig
 from khipu_tpu_torch.domain.blockchain import Blockchain, GenesisSpec
 from khipu_tpu_torch.domain.transaction import SignedTransaction
 from khipu_tpu_torch.ops import build, keccak_cuda
@@ -20,15 +21,18 @@ from khipu_tpu_torch.ops.keccak import (
     keccak256_device_fixed,
     keccak256_fixed,
 )
+from khipu_tpu_torch.ledger.window import WindowCommitter
 from khipu_tpu_torch.storage import mirror_cuda
 from khipu_tpu_torch.storage.datasource import MemoryKeyValueDataSource
 from khipu_tpu_torch.storage.device_mirror import DeviceNodeMirror
 from khipu_tpu_torch.storage.storages import Storages
 from khipu_tpu_torch.sync.fast_sync import FastSyncStateStorage, StateSyncer
+from khipu_tpu_torch.sync import adaptive
+from khipu_tpu_torch.sync.adaptive import AdaptiveCommitController, probe_backend
 from khipu_tpu_torch.sync.prefetch import recover_block_senders
 from khipu_tpu_torch.sync.replay import ReplayDriver
 from khipu_tpu_torch.trie import bulk, deferred, fixpoint_cuda, fused
-from khipu_tpu_torch.trie.mpt import MerklePatriciaTrie
+from khipu_tpu_torch.trie.mpt import EMPTY_TRIE_HASH, MerklePatriciaTrie
 from khipu_tpu_torch.state import load_reference_nodes
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -114,14 +118,46 @@ def _session():
     lambda: _chain().load_genesis(GenesisSpec(alloc={b"a" * 20: 1}),
                                   on_device=True),
     lambda: recover_block_senders([_signed_tx()], batch_hash=True),
+    lambda: ReplayDriver(_chain(), workloads.replay_config(
+        commit_window_blocks=8), device_commit=True),
+    lambda: WindowCommitter(Storages(), EMPTY_TRIE_HASH, fused=True),
+    lambda: AdaptiveCommitController(SyncConfig()),
+    lambda: probe_backend(),
 ], ids=["batch", "batch-cuda", "fixed", "device_hasher", "bulk_fused",
         "bulk_levels", "finalize_fused", "finalize_levels", "commit",
         "batch_commit", "fused_submit", "device_fixed", "device_fixed_words",
         "mirror", "state_syncer", "replay_driver", "replay_device_commit",
-        "genesis_on_device", "sender_batch_hash"])
+        "genesis_on_device", "sender_batch_hash", "replay_windowed",
+        "window_committer_fused", "adaptive_controller", "adaptive_probe"])
 def test_entry_points_raise_without_card(no_card, call):
     with pytest.raises(RuntimeError, match="is_available"):
         call()
+
+
+def test_windowed_replay_on_cpu_touches_no_cuda(monkeypatch):
+    """A windowed replay on ``device="cpu"`` with the adaptive controller
+    on: the probe reports ``device_ok=False`` without timing anything,
+    the controller holds host mode, and no CUDA call is made."""
+
+    def no_cuda(*a, **kw):
+        raise AssertionError("CUDA touched on a CPU replay")
+
+    for name in ("is_available", "synchronize", "Event", "current_device",
+                 "current_stream", "device"):
+        monkeypatch.setattr(torch.cuda, name, no_cuda)
+    monkeypatch.setattr(adaptive, "_PROBE_CACHE", {})
+    probe = probe_backend(device="cpu")
+    assert (probe.platform, probe.device_ok) == ("cpu", False)
+    cfg = workloads.replay_config(commit_window_blocks=2,
+                                  adaptive_commit=True)
+    assert cfg.sync.adaptive_probe
+    _, spec, blocks = workloads.transfer_chain(cfg, 3, 1, senders=2)
+    chain = Blockchain(Storages(), cfg)
+    chain.load_genesis(spec)
+    driver = ReplayDriver(chain, cfg, device_commit=True, device="cpu")
+    assert driver.replay(blocks).blocks == 3
+    assert driver.adaptive.mode() == "host" and driver.adaptive.flips == 1
+    assert driver.adaptive.probe is probe
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -16,6 +16,7 @@ from khipu_tpu import statetest as jx_statetest
 from khipu_tpu.base.crypto import secp256k1 as jx_secp
 from khipu_tpu.config import SyncConfig as JxSyncConfig
 from khipu_tpu.config import fixture_config as jx_fixture_config
+from khipu_tpu.domain import block as jx_block
 from khipu_tpu.domain import transaction as jx_tx
 from khipu_tpu.domain.blockchain import Blockchain as JxBlockchain
 from khipu_tpu.domain.blockchain import GenesisSpec as JxGenesisSpec
@@ -188,12 +189,53 @@ def test_mainnet_block1_replays_to_sealed_root():
     assert miner.balance == 5 * 10**18
 
 
-def test_commit_window_above_one_raises():
-    cfg = workloads.replay_config(commit_window_blocks=4)
-    chain = Blockchain(Storages(), cfg)
-    chain.load_genesis(GenesisSpec())
-    with pytest.raises(NotImplementedError, match="commit_window_blocks"):
-        ReplayDriver(chain, cfg, device_commit=True, device="cpu").replay([])
+@pytest.mark.parametrize("window", [4, 16])
+@pytest.mark.parametrize("build", [
+    lambda cfg: workloads.transfer_chain(cfg, 20, 2, senders=3),
+    lambda cfg: workloads.erc20_chain(cfg, 19, 3, 8),
+], ids=["transfer_chain_20x2", "erc20_chain_deploy_19x3"])
+def test_windowed_replay_matches_reference(build, window):
+    """The serial replay's chains at ``commit_window_blocks`` 4 and 16
+    (20 blocks: several windows, the last one short), replayed by both
+    drivers' windowed pipelines — the port's with ``device_commit`` on
+    the CPU (the plain K5 and a CPU mirror): headers, receipts and the
+    nodes reachable from the head root equal the JAX package's, and the
+    head root is the host-built chain's."""
+    from tests.test_torch_window import _reachable
+
+    from khipu_tpu.storage.compactor import compact as jx_compact
+
+    pt_cfg = workloads.replay_config(commit_window_blocks=window,
+                                     adaptive_commit=False)
+    jx_cfg = dataclasses.replace(
+        jx_fixture_config(chain_id=1),
+        sync=JxSyncConfig(parallel_tx=False, commit_window_blocks=window))
+    builder, spec, blocks = build(workloads.replay_config())
+    wire = [b.encode() for b in blocks]
+
+    jx_chain = JxBlockchain(JxStorages(), jx_cfg)
+    jx_chain.load_genesis(JxGenesisSpec(alloc=spec.alloc,
+                                        gas_limit=spec.gas_limit))
+    jx_stats = JxReplayDriver(jx_chain, jx_cfg).replay(
+        [jx_block.Block.decode(w) for w in wire])
+    pt_chain = Blockchain(Storages(), pt_cfg)
+    pt_chain.load_genesis(spec, on_device=True, device="cpu")
+    stats = ReplayDriver(pt_chain, pt_cfg, device_commit=True,
+                         device="cpu").replay([Block.decode(w) for w in wire])
+
+    n = len(blocks)
+    assert (stats.blocks, stats.txs, stats.gas) == (
+        jx_stats.blocks, jx_stats.txs, jx_stats.gas) and stats.blocks == n
+    for i in range(1, n + 1):
+        assert (pt_chain.get_header_by_number(i).encode()
+                == jx_chain.get_header_by_number(i).encode())
+        assert (pt_chain.storages.receipts_storage.get(i)
+                == jx_chain.storages.receipts_storage.get(i))
+    root = blocks[-1].header.state_root
+    assert pt_chain.get_header_by_number(n).state_root == root
+    assert (_reachable(pt_chain.storages, root)
+            == _reachable(jx_chain.storages, root, jx_compact))
+    assert pt_chain.storages.window_journal.pending() == []
 
 
 def test_parallel_replay_raises_for_multi_tx_blocks():
