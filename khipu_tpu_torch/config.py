@@ -2,10 +2,10 @@
 
 The port's copy of ``khipu_tpu.config``, every default the same, cut to
 the fields the port reads: the chain's fork schedule and the replay's
-sync knobs (serial execution, the windowed commit pipeline, the commit
-journal and the adaptive controller). A section or field comes back with
-the module that reads it. An unported value of a field kept raises where
-it is read (``parallel_tx`` with more than one transaction in a block).
+sync knobs (serial, optimistic and scheduled execution, the execute
+stage's device validation, the windowed commit pipeline, the commit
+journal and the adaptive controller). A section or field comes back
+with the module that reads it.
 
 Parity: config/KhipuConfig.scala:20-120 (nested Network/Sync/Db accessor
 objects over HOCON) and BlockchainConfig :185 (fork block numbers,
@@ -94,9 +94,19 @@ class BlockchainConfig:
 class SyncConfig:
     """Replay/sync knobs (KhipuConfig.Sync)."""
 
-    # optimistic parallel execution (P1); the port runs the serial fold
-    # and raises for a block of more than one transaction while it is on
+    # parallel execution of a block's transactions: the scheduled
+    # executor (below) for Byzantium+ blocks, else the optimistic pass
+    # with its serial merge (P1). False = the serial fold
     parallel_tx: bool = True
+    tx_workers: int = 8  # worker pool width (TxProcessor.scala:29 role)
+    # conflict-aware scheduled execution (ledger/schedule.py): predict
+    # read/write sets, pack disjoint batches, vectorize plain-transfer
+    # batches (ledger/batch_exec.py), serial residue for everything
+    # unpredictable; mispredictions fall back to the optimistic path
+    # whole-block. False = always optimistic (the P1 oracle). Only
+    # engages for Byzantium+ blocks (pre-Byzantium receipts embed
+    # intermediate roots, which forbid out-of-order execution)
+    scheduled_tx: bool = True
     # pipelined sender recovery (sync/prefetch.py): a prefetch thread
     # recovers senders for upcoming blocks while the driver executes
     # the current block, with a process-wide (preimage, v, r, s) ->
@@ -148,6 +158,15 @@ class SyncConfig:
     # False skips the probe
     adaptive_probe: bool = True
     adaptive_d2d_margin: float = 1.5
+    # execute-stage device dispatch: ship the gathered account rows of
+    # the scheduled executor's fast-path batches through the row
+    # validation kernel (trie/fused.py fused_exec_validate, K6 on the
+    # card). Opt-in CAP like device_mirror_commit — even when True the
+    # dispatch engages only where the adaptive probe shows real device
+    # memory (d2d beats memcpy by adaptive_d2d_margin), or where
+    # adaptive_probe is False. Off, the host numpy pass validates the
+    # rows; on, a device error stops the block (no host fallback)
+    exec_device: bool = False
     # EWMA smoothing over per-window per-hash seal cost observations
     adaptive_ewma_alpha: float = 0.4
     # Schmitt trigger: flip device -> host when the device EWMA

@@ -1,10 +1,9 @@
-"""Ledger: world state, serial block execution, receipts.
+"""Ledger: world state, block execution, parallel merge, receipts.
 
 Parity: khipu-eth/src/main/scala/khipu/ledger/ (Ledger.scala,
 BlockWorldState.scala, TrieAccounts/TrieStorage, BloomFilter.scala,
 BlockRewardCalculator.scala). The port's counterpart of
-``khipu_tpu.ledger`` without the parallel and scheduled executors and
-the window committer (ROADMAP).
+``khipu_tpu.ledger``.
 """
 
 from khipu_tpu_torch.ledger.bloom import bloom_of_logs, bloom_union
@@ -17,6 +16,12 @@ from khipu_tpu_torch.ledger.ledger import (
     ValidationAfterExecError,
     execute_block,
     execute_transaction,
+    shutdown_exec_pool,
+)
+from khipu_tpu_torch.ledger.schedule import (
+    Misprediction,
+    plan_block,
+    reset_templates,
 )
 from khipu_tpu_torch.ledger.world import BlockWorldState, TrieStorage
 
@@ -24,6 +29,7 @@ __all__ = [
     "BlockExecutionError",
     "BlockResult",
     "BlockWorldState",
+    "Misprediction",
     "Stats",
     "TrieStorage",
     "TxResult",
@@ -33,4 +39,7 @@ __all__ = [
     "bloom_union",
     "execute_block",
     "execute_transaction",
+    "plan_block",
+    "reset_templates",
+    "shutdown_exec_pool",
 ]

@@ -48,6 +48,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i, u64 = ctypes.c_char_p, ctypes.c_int, ctypes.c_uint64
     lib.khipu_keccak.argtypes = [i, p, u64, p, i]
     lib.khipu_keccak.restype = None
+    lib.khipu_keccak_batch.argtypes = [
+        i, p, ctypes.POINTER(ctypes.c_uint64), u64, p, i,
+    ]
+    lib.khipu_keccak_batch.restype = None
     lib.khipu_ec_mul_add.argtypes = [p] * 8
     lib.khipu_ec_mul_add.restype = i
     lib.khipu_ecdsa_recover_batch.argtypes = [i] + [p] * 5

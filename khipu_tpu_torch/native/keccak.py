@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import ctypes
+from typing import List, Sequence
 
 from khipu_tpu_torch.native.build import load_library
 
@@ -14,3 +15,22 @@ def keccak256(data: bytes) -> bytes:
     load_library().khipu_keccak(_RATE_256, bytes(data), len(data), out, 32)
     return out.raw
 
+
+def keccak256_batch(messages: Sequence[bytes]) -> List[bytes]:
+    """Keccak-256 of every message in one native call
+    (``khipu_keccak_batch``): the messages are concatenated and the
+    library walks ``n + 1`` cumulative offsets."""
+    n = len(messages)
+    if n == 0:
+        return []
+    blob = b"".join(messages)
+    offsets = (ctypes.c_uint64 * (n + 1))()
+    pos = 0
+    for i, m in enumerate(messages):
+        offsets[i] = pos
+        pos += len(m)
+    offsets[n] = pos
+    out = ctypes.create_string_buffer(32 * n)
+    load_library().khipu_keccak_batch(_RATE_256, blob, offsets, n, out, 32)
+    raw = out.raw
+    return [raw[i * 32:(i + 1) * 32] for i in range(n)]

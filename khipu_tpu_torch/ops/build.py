@@ -112,6 +112,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.khipu_fixpoint_levels.restype = i
     lib.khipu_fixpoint_levels_occupancy.argtypes = [i, p, p]
     lib.khipu_fixpoint_levels_occupancy.restype = i
+    lib.khipu_exec_validate.argtypes = [p, ll, p, i, p]
+    lib.khipu_exec_validate.restype = i
 
 
 def launch_args(t) -> tuple:

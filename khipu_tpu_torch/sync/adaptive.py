@@ -140,6 +140,21 @@ def probe_backend(margin: float = 1.5, device=None) -> ProbeResult:
     return result
 
 
+def exec_device_allowed(sync_cfg, device=None) -> bool:
+    """Gate for the execute-stage device dispatch (ledger/batch_*.py
+    -> trie/fused.fused_exec_validate, K6 on the card): the sync config
+    must opt in (``exec_device``, the cap) AND, unless
+    ``adaptive_probe`` is off, the one-shot probe of ``device`` must
+    show real device memory — d2d beating host memcpy by the margin the
+    adaptive commit controller demands. A CPU device reports False, so
+    the host numpy pass runs there."""
+    if not getattr(sync_cfg, "exec_device", False):
+        return False
+    if not getattr(sync_cfg, "adaptive_probe", True):
+        return True  # explicit cap with probing disabled: honor it
+    return probe_backend(sync_cfg.adaptive_d2d_margin, device).device_ok
+
+
 def _calibrate_host_hash_s(samples: int = 256) -> float:
     """Seconds per scalar host Keccak — the host estimate the trigger
     compares against until measured host windows replace it."""

@@ -105,6 +105,16 @@ class ReplayStats:
     txs: int = 0
     gas: int = 0
     seconds: float = 0.0
+    # execute-stage split (ledger/ledger.py Stats, summed): txs merged
+    # without a serial re-run (optimistic) or run inside a scheduled
+    # batch, serial re-executions or conflicted predictions, txs through
+    # the vectorized fast path vs the serial residue, and scheduled
+    # attempts discarded by the post-hoc footprint check
+    parallel_txs: int = 0
+    conflicts: int = 0
+    fast_path_txs: int = 0
+    residue_txs: int = 0
+    mispredictions: int = 0
     # per-phase wall-clock split (seconds) of the driver thread:
     # senders (waiting on the prefetcher; without it, execute_block
     # recovers them inside execute), validate (header, body and ommer
@@ -132,6 +142,25 @@ class ReplayStats:
         if self.persist_store_seconds <= 0.0:
             return 0.0
         return self.persist_bytes / self.persist_store_seconds
+
+    @property
+    def parallel_rate(self) -> float:
+        """Fraction of executed txs that ran in parallel (merged
+        without a re-run, or inside a scheduled batch)."""
+        return self.parallel_txs / self.txs if self.txs else 0.0
+
+    @property
+    def fast_path_coverage(self) -> float:
+        """Fraction of executed txs the vectorized fast path carried."""
+        return self.fast_path_txs / self.txs if self.txs else 0.0
+
+    def add_exec(self, s) -> None:
+        """Add one block's execute-stage counters (a ledger ``Stats``)."""
+        self.parallel_txs += s.parallel_count
+        self.conflicts += s.conflict_count
+        self.fast_path_txs += s.fast_path_txs
+        self.residue_txs += s.residue_txs
+        self.mispredictions += s.mispredicted_txs
 
     def phase_line(self) -> dict:
         return {k: round(v, 3) for k, v in self.phases.items()}
@@ -717,6 +746,8 @@ class ReplayDriver:
                     stats.blocks += n_blocks
                     stats.txs += txs
                     stats.gas += gas
+                    for _, result in results:
+                        stats.add_exec(result.stats)
                 ph["save_bg"] += time.perf_counter() - t0
 
             return (seal_fn, collect_fn, persist_fn, save_fn)
@@ -786,6 +817,9 @@ class ReplayDriver:
                     self.config,
                     validate=True,
                     check_root=False,  # deferred to the collect stage
+                    # no pool thread may read through the mirror
+                    exec_pool=mirror is None,
+                    device=dev,
                 )
                 ph["execute"] += time.perf_counter() - t0
                 t0 = time.perf_counter()
@@ -878,6 +912,7 @@ class ReplayDriver:
             self.config,
             validate=True,
             hasher=self.hasher,  # root check + persist share one flush
+            device=self.device,
         )
         t2 = time.perf_counter()
         td = (
@@ -896,6 +931,7 @@ class ReplayDriver:
         stats.blocks += 1
         stats.txs += result.stats.tx_count
         stats.gas += result.gas_used
+        stats.add_exec(result.stats)
 
         if self.log is not None:
             # RegularSyncService.scala:429 one-line format
@@ -906,6 +942,7 @@ class ReplayDriver:
                 f"{ntx} txs in {dt * 1000:.1f}ms, "
                 f"{ntx / dt if dt else 0:.1f} tx/s, "
                 f"{result.gas_used / dt / 1e6 if dt else 0:.2f} mgas/s, "
+                f"parallel {result.stats.parallel_rate * 100:.0f}%, "
                 f"cache hit "
                 f"{self.blockchain.storages.account_node_storage.cache_hit_rate * 100:.0f}%"
             )

@@ -28,6 +28,10 @@ substitute every triple) and pads rows and triples to compile-friendly
 buckets (1024-row tiles, pow-2 counts); the port compiles nothing per
 shape, so a class holds its real rows plus one spare filler row, and
 only real triples.
+
+The module also holds the execute stage's device hook,
+``fused_exec_validate``: the scheduled executor's batch row validation,
+kernel K6 on the card.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ from khipu_tpu_torch.device import resolve_device
 from khipu_tpu_torch.observability import REGISTRY, span as _span
 from khipu_tpu_torch.ops import keccak_torch
 from khipu_tpu_torch.ops.keccak_torch import RATE
-from khipu_tpu_torch.trie import fixpoint_cuda
+from khipu_tpu_torch.trie import exec_validate_cuda, fixpoint_cuda
 
 ADMIT_TILE = 1024  # rows per mirror tile (admit gathers come in whole tiles)
 
@@ -566,3 +570,71 @@ def _fused_submit(to_resolve, prefix, dev, depth, ext,
         encs=[c.enc for c in classes],
         admit_tiles=admit_tiles,
     )
+
+
+# ------------------------------------------- execute-stage device hook
+#
+# The gathered account rows of the scheduled executor's fast-path and
+# trusted-call batches (ledger/batch_exec.py, batch_call.py) validate in
+# one device pass: the transaction's nonce must equal the account's, and
+# the balance must cover the upfront cost. The rows are the host pass's
+# 256-bit big-endian limbs as u32 words, packed one row of 20 words a
+# transaction, so a batch is one upload. On the card the pass is kernel
+# K6 (exec_validate_cuda.validate_rows), on the CPU exec_validate_plain.
+# The JAX package pads rows to a power of two for its compile cache; the
+# port compiles nothing per shape and sends the real rows only. Only
+# reachable with sync.exec_device (adaptive.exec_device_allowed).
+
+
+def pack_exec_rows(tx_nonces, acct_nonces, balances,
+                   upfronts) -> np.ndarray:
+    """uint32[n, 20] rows: the transaction's nonce and the account's
+    (2 big-endian words each), then the balance and the upfront cost (8
+    big-endian limbs each). Nonces must fit in 64 bits and the amounts
+    in 256 (OverflowError otherwise)."""
+    raw = b"".join(
+        t.to_bytes(8, "big") + a.to_bytes(8, "big")
+        + b.to_bytes(32, "big") + u.to_bytes(32, "big")
+        for t, a, b, u in zip(tx_nonces, acct_nonces, balances, upfronts)
+    )
+    return (np.frombuffer(raw, dtype=">u4").astype(np.uint32)
+            .reshape(-1, exec_validate_cuda.ROW_WORDS))
+
+
+def exec_validate_plain(rows: torch.Tensor) -> torch.Tensor:
+    """The plain version of K6 on ``rows`` (int32[n, 20], the u32 words
+    of ``pack_exec_rows``) on any device: u8[n], 1 where the row is
+    valid. The limbs are held in int64, where torch on the CPU lacks
+    unsigned compares."""
+    w = rows.to(torch.int64) & 0xFFFFFFFF
+    nonce_ok = (w[:, 0:2] == w[:, 2:4]).all(dim=1)
+    bal, up = w[:, 4:12], w[:, 12:20]
+    neq = bal != up
+    has_diff = neq.any(dim=1)
+    # torch.argmax gives the first of equal maxima: the first limb that
+    # differs decides, all-equal passes
+    first = torch.argmax(neq.to(torch.int8), dim=1, keepdim=True)
+    first_gt = torch.gather(bal > up, 1, first)[:, 0]
+    balance_ok = torch.where(has_diff, first_gt, torch.ones_like(first_gt))
+    return (nonce_ok & balance_ok).to(torch.uint8)
+
+
+def fused_exec_validate(tx_nonces, acct_nonces, balances, upfronts,
+                        device=None) -> np.ndarray:
+    """Validate one gathered batch of account rows on ``device``
+    (``None`` means the card): a bool mask, True where the nonce matches
+    and the balance covers the upfront cost — the host pass of
+    ``ledger/batch_exec.gather_validate_rows``. K6 on the card, the plain
+    version on the CPU; an error on the card propagates."""
+    dev = resolve_device(device)
+    rows = torch.from_numpy(
+        pack_exec_rows(tx_nonces, acct_nonces, balances, upfronts)
+        .view(np.int32)
+    )
+    if dev.type == "cpu":
+        ok = exec_validate_plain(rows)
+    elif dev.type == "cuda":
+        ok = exec_validate_cuda.validate_rows(rows.to(dev)).cpu()
+    else:
+        raise ValueError(f"unsupported device {dev}")
+    return ok.numpy().astype(bool)

@@ -14,8 +14,12 @@ drive the same data:
   trie and a code blob, as the three node stores a fast sync downloads.
 * Replay chains: ``MAINNET_BLOCK1`` over ``mainnet_genesis_spec``, and
   fixture chains executed by ``ChainBuilder`` on the host —
-  ``transfer_chain`` (value transfers) and ``erc20_chain`` (a deploy
-  block, then token ``transfer(to, amount)`` calls).
+  ``transfer_chain`` (value transfers), ``contended_transfer_chain``
+  (a share of each block's transfers paying a few hot recipients),
+  ``erc20_chain`` (a deploy block, then token ``transfer(to, amount)``
+  calls) and ``mixed_contract_chain`` (counter calls beside
+  transfers). ``replay_config`` and ``prebyzantium_config`` give their
+  configurations.
 
 Addresses and slots are hashed in one batch on ``device`` (K1f on the
 card).
@@ -261,7 +265,7 @@ REPLAY_GAS_LIMIT = 30_000_000
 def replay_config(**sync):
     """Every fork active from genesis (``fixture_config``), serial
     execution, one block a commit; ``sync`` overrides ``SyncConfig``
-    fields."""
+    fields (``parallel_tx=True`` for the scheduled executor)."""
     import dataclasses
 
     from khipu_tpu_torch.config import SyncConfig, fixture_config
@@ -270,6 +274,23 @@ def replay_config(**sync):
     fields.update(sync)
     return dataclasses.replace(fixture_config(chain_id=1),
                                sync=SyncConfig(**fields))
+
+
+def prebyzantium_config(**sync):
+    """``replay_config`` with the schedule cut at Spurious Dragon: every
+    fork through EIP-155/160/161 active from genesis, Byzantium and the
+    later forks unscheduled. Receipts then carry intermediate state
+    roots, so ``parallel_tx`` runs the optimistic executor and its
+    serial merge, and commits stay one block each."""
+    import dataclasses
+
+    from khipu_tpu_torch.config import FAR
+
+    cfg = replay_config(**sync)
+    return dataclasses.replace(cfg, blockchain=dataclasses.replace(
+        cfg.blockchain, byzantium_block=FAR, constantinople_block=FAR,
+        petersburg_block=FAR, istanbul_block=FAR,
+    ))
 
 
 def replay_keys(n: int, seed_base: int = 1):
@@ -323,6 +344,94 @@ def transfer_chain(cfg, n_blocks: int, txs_per_block: int,
                              10**15 + 7 * n + j)
             txs.append(sign_transaction(tx, keys[i], chain_id=1))
             nonces[i] += 1
+        blocks.append(builder.add_block(txs, coinbase=COINBASE))
+    return builder, spec, blocks
+
+
+def contended_transfer_chain(cfg, n_blocks: int, txs_per_block: int,
+                             hot_recipients: int = 4,
+                             hot_fraction: float = 0.2):
+    """``n_blocks`` blocks of ``txs_per_block`` value transfers from
+    ``txs_per_block`` funded keys (one transfer a sender a block): the
+    first ``hot_fraction`` of each block pays one of ``hot_recipients``
+    shared addresses in turn, the rest pay fresh addresses (new
+    accounts). The shape of the JAX package's contended-replay bench,
+    with plain transfers in place of its token calls. Returns
+    ``(builder, genesis spec, blocks)``."""
+    from khipu_tpu_torch.domain.transaction import (
+        Transaction,
+        sign_transaction,
+    )
+
+    keys, addrs = replay_keys(txs_per_block, seed_base=101)
+    builder, spec = _builder(cfg, {a: 10**24 for a in addrs})
+    hot = [(0xA0000000 + i).to_bytes(20, "big")
+           for i in range(hot_recipients)]
+    n_hot = max(1, int(txs_per_block * hot_fraction))
+    blocks = []
+    for n in range(n_blocks):
+        txs = []
+        for j in range(txs_per_block):
+            if j < n_hot:
+                to = hot[(j + n) % hot_recipients]
+            else:
+                to = (0xB0000000 + n * txs_per_block + j).to_bytes(20, "big")
+            tx = Transaction(n, 10**9, 21_000, to, 10**15 + 7 * n + j)
+            txs.append(sign_transaction(tx, keys[j], chain_id=1))
+        blocks.append(builder.add_block(txs, coinbase=COINBASE))
+    return builder, spec, blocks
+
+
+# counter runtime: storage[0] += 1 (a literal slot)
+COUNTER_RUNTIME = bytes([
+    0x60, 0x00, 0x54,        # PUSH1 0 SLOAD
+    0x60, 0x01, 0x01,        # PUSH1 1 ADD
+    0x60, 0x00, 0x55,        # PUSH1 0 SSTORE
+    0x00,                    # STOP
+])
+
+
+def mixed_contract_chain(cfg, n_blocks: int, txs_per_block: int,
+                         call_fraction: float = 0.6):
+    """A deploy block, then ``n_blocks`` blocks of ``txs_per_block``
+    transactions, one a sender: the first ``call_fraction`` call a
+    ``COUNTER_RUNTIME`` contract (every call writes the same slot), the
+    rest are value transfers to 64 receivers in turn. The shape of the
+    JAX package's mixed-contract bench. Returns ``(builder, genesis
+    spec, blocks)``."""
+    from khipu_tpu_torch.domain.transaction import (
+        Transaction,
+        contract_address,
+        sign_transaction,
+    )
+
+    keys, addrs = replay_keys(txs_per_block, seed_base=401)
+    builder, spec = _builder(cfg, {a: 10**24 for a in addrs})
+    runtime = COUNTER_RUNTIME
+    init = (
+        bytes([0x60 + len(runtime) - 1]) + runtime
+        + bytes([0x60, 0x00, 0x52])
+        + bytes([0x60, len(runtime), 0x60, 32 - len(runtime), 0xF3])
+    )
+    counter = contract_address(addrs[0], 0)
+    receivers = [(0xD00D0000 + i).to_bytes(20, "big") for i in range(64)]
+    n_calls = int(txs_per_block * call_fraction)
+    deploy = Transaction(0, 10**9, 500_000, None, 0, payload=init)
+    blocks = [builder.add_block([sign_transaction(deploy, keys[0],
+                                                  chain_id=1)],
+                                coinbase=COINBASE)]
+    nonces = [1] + [0] * (txs_per_block - 1)
+    for n in range(n_blocks):
+        txs = []
+        for j in range(txs_per_block):
+            if j < n_calls:
+                tx = Transaction(nonces[j], 10**9, 100_000, counter, 0)
+            else:
+                tx = Transaction(nonces[j], 10**9, 21_000,
+                                 receivers[(j * 5 + n) % len(receivers)],
+                                 1_000 + n)
+            txs.append(sign_transaction(tx, keys[j], chain_id=1))
+            nonces[j] += 1
         blocks.append(builder.add_block(txs, coinbase=COINBASE))
     return builder, spec, blocks
 

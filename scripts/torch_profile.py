@@ -13,15 +13,21 @@ the host first and replayed into a fresh chain, sender cache cold) and
 the ERC-20 chain again through the windowed pipeline at
 ``commit_window_blocks=8`` (``replay_erc20_w8``, at the port's defaults:
 no adaptive controller, so every window runs K5; the line gives the
-adaptive probe's readout in this process) — once with only the port's spans on, then once under
-``torch.profiler``.
+adaptive probe's readout in this process), that chain at
+``parallel_tx=True`` (``replay_erc20_par_w8``: the scheduled executor)
+and 32 blocks of 200 contended transfers at window 16 through the
+vectorized transfer lane with ``exec_device=True`` and the probe off
+(``replay_transfers_par_w16``: K6 a batch) — each once with only the
+port's spans on, then once under ``torch.profiler``. ``--only`` names
+the workloads to run (default: all).
 For each it prints one JSON line: host wall seconds, span seconds, the
 device's busy seconds (the union of device activity intervals in the
 trace), the device's idle share of the profiled wall time, device time
 by kernel name, and the launches, device time and share of the busy
-time of K5 (the fixpoint kernel) and of K1r (the batched sponge of fast
+time of K5 (the fixpoint kernel), of K1r (the batched sponge of fast
 sync's content check and of the replays' trie commits and sender
-batches); the replays also give K1r's and K5's device ms a block.
+batches) and of K6 (the row validation); the replays also give K1r's,
+K5's and K6's device ms a block.
 Chrome traces go to ``DIR`` (default ``_profiles/``, which
 ``.gitignore`` lists).
 Exits 2 without a card.
@@ -83,6 +89,7 @@ def device_profile(torch, prof, wall_s: float, top: int = 8) -> dict:
         "device_events": len(spans),
         "k5": kernel("fixpoint_levels"),
         "k1r": kernel("ragged"),
+        "k6": kernel("exec_validate"),
         "kernels": kernels[:top],
     }
 
@@ -95,7 +102,10 @@ def main() -> int:
     ap.add_argument("--writes", type=int, default=400)
     ap.add_argument("--new-accounts", type=int, default=20)
     ap.add_argument("--out", default=os.path.join(ROOT, "_profiles"))
+    ap.add_argument("--only", default="",
+                    help="comma-separated workload names (default: all)")
     args = ap.parse_args()
+    only = set(filter(None, args.only.split(",")))
 
     import torch
 
@@ -110,6 +120,7 @@ def main() -> int:
     from khipu_tpu_torch import observability, workloads
     from khipu_tpu_torch.domain.block import Block
     from khipu_tpu_torch.domain.blockchain import Blockchain
+    from khipu_tpu_torch.ledger.schedule import reset_learner
     from khipu_tpu_torch.ops import build
     from khipu_tpu_torch.state import load_reference_nodes
     from khipu_tpu_torch.storage.datasource import MemoryKeyValueDataSource
@@ -127,6 +138,9 @@ def main() -> int:
     os.makedirs(args.out, exist_ok=True)
     dev = torch.device("cuda")
     build.load()
+
+    def wanted(name):
+        return not only or name in only
 
     def measure(name, fn, **extra):
         observability.SPAN_TOTALS.clear()
@@ -149,7 +163,7 @@ def main() -> int:
                 "profiled_wall_s": pwall, **device_profile(torch, prof, pwall),
                 **extra}
         if "blocks" in extra:
-            for k in ("k1r", "k5"):
+            for k in ("k1r", "k5", "k6"):
                 line[f"{k}_device_ms_per_block"] = (line[k]["device_ms"]
                                                     / extra["blocks"])
                 line[f"{k}_launches_per_block"] = (line[k]["launches"]
@@ -157,52 +171,69 @@ def main() -> int:
         if hasattr(result, "phases"):  # a replay's ReplayStats
             line["phases_s"] = result.phases
             line["blocks_per_s"] = result.blocks_per_s
+            line["parallel_rate"] = result.parallel_rate
         emit(line)
         return result
 
-    pairs = workloads.fresh_state_pairs(args.accounts, device=dev)
-    bulk.bulk_build(pairs[:1000], fused=True, device=dev)  # warm-up
-    root, nodes = measure(
-        "bulk_100k",
-        lambda: bulk.bulk_build(pairs, fused=True, device=dev),
-        accounts=args.accounts,
-    )
+    if wanted("bulk_100k") or wanted("fast_sync") or wanted("window_16x400"):
+        pairs = workloads.fresh_state_pairs(args.accounts, device=dev)
+        bulk.bulk_build(pairs[:1000], fused=True, device=dev)  # warm-up
+        root, nodes = measure(
+            "bulk_100k",
+            lambda: bulk.bulk_build(pairs, fused=True, device=dev),
+            accounts=args.accounts,
+        )
 
-    src_root, stores = workloads.contract_snapshot(
-        pairs, np.random.default_rng(args.seed + 1), device=dev)
-    total = sum(len(s) for s in stores)
-    capacity = -(-total // TILE) * TILE
+    if wanted("fast_sync"):
+        src_root, stores = workloads.contract_snapshot(
+            pairs, np.random.default_rng(args.seed + 1), device=dev)
+        total = sum(len(s) for s in stores)
+        capacity = -(-total // TILE) * TILE
 
-    def sync():
-        syncer = StateSyncer(
-            Storages(), FastSyncStateStorage(MemoryKeyValueDataSource()),
-            workloads.snapshot_fetch(stores),
-            mirror=DeviceNodeMirror(capacity, device=dev), device=dev)
-        return syncer.start(src_root).downloaded_nodes
+        def sync():
+            syncer = StateSyncer(
+                Storages(), FastSyncStateStorage(MemoryKeyValueDataSource()),
+                workloads.snapshot_fetch(stores),
+                mirror=DeviceNodeMirror(capacity, device=dev), device=dev)
+            return syncer.start(src_root).downloaded_nodes
 
-    measure("fast_sync", sync, nodes=total)
+        measure("fast_sync", sync, nodes=total)
 
-    session = deferred.DeferredMPT(load_reference_nodes(nodes), root_hash=root)
-    blocks = workloads.TransferBlocks(pairs, np.random.default_rng(args.seed))
-    for _ in range(args.blocks):
-        for k, v in blocks.next(args.writes, args.new_accounts).items():
-            session = session.put(k, v)
-        session.force_hashed_root()
-    measure(
-        "window_16x400",
-        lambda: deferred.finalize(session, return_mapping=True, fused=True,
-                                  device=dev),
-        blocks=args.blocks, writes=args.writes,
-    )
+    if wanted("window_16x400"):
+        session = deferred.DeferredMPT(load_reference_nodes(nodes),
+                                       root_hash=root)
+        blocks = workloads.TransferBlocks(pairs,
+                                          np.random.default_rng(args.seed))
+        for _ in range(args.blocks):
+            for k, v in blocks.next(args.writes, args.new_accounts).items():
+                session = session.put(k, v)
+            session.force_hashed_root()
+        measure(
+            "window_16x400",
+            lambda: deferred.finalize(session, return_mapping=True,
+                                      fused=True, device=dev),
+            blocks=args.blocks, writes=args.writes,
+        )
 
-    cfg = workloads.replay_config()
-    erc20 = workloads.erc20_chain(cfg, 16, 200, 256)
-    for name, cfg, (_, spec, blocks) in (
-        ("replay_transfers_128x1", cfg, workloads.transfer_chain(cfg, 128, 1)),
-        ("replay_erc20_16x200", cfg, erc20),
+    serial = workloads.replay_config()  # builds every chain, serially
+    erc20 = workloads.erc20_chain(serial, 16, 200, 256)
+    replays = (
+        ("replay_transfers_128x1", serial, lambda: workloads.transfer_chain(
+            serial, 128, 1)),
+        ("replay_erc20_16x200", serial, lambda: erc20),
         ("replay_erc20_w8", workloads.replay_config(commit_window_blocks=8),
-         erc20),
-    ):
+         lambda: erc20),
+        ("replay_erc20_par_w8", workloads.replay_config(
+            parallel_tx=True, commit_window_blocks=8), lambda: erc20),
+        ("replay_transfers_par_w16", workloads.replay_config(
+            parallel_tx=True, commit_window_blocks=16, exec_device=True,
+            adaptive_probe=False),
+         lambda: workloads.contended_transfer_chain(serial, 32, 200)),
+    )
+    for name, cfg, chain in replays:
+        if not wanted(name):
+            continue
+        _, spec, blocks = chain()
         wire = [b.encode() for b in blocks]
         targets = []
         for _ in range(2):  # one chain for each of measure's two runs
@@ -211,6 +242,7 @@ def main() -> int:
 
         def run(cfg=cfg, targets=targets, wire=wire):
             prefetch.flush_sender_cache()
+            reset_learner()
             return ReplayDriver(targets.pop(0), cfg, device_commit=True,
                                 device=dev).replay(
                 [Block.decode(w) for w in wire])

@@ -123,12 +123,15 @@ def _session():
     lambda: WindowCommitter(Storages(), EMPTY_TRIE_HASH, fused=True),
     lambda: AdaptiveCommitController(SyncConfig()),
     lambda: probe_backend(),
+    lambda: fused.fused_exec_validate([0], [0], [1], [1]),
+    lambda: adaptive.exec_device_allowed(SyncConfig(exec_device=True)),
 ], ids=["batch", "batch-cuda", "fixed", "device_hasher", "bulk_fused",
         "bulk_levels", "finalize_fused", "finalize_levels", "commit",
         "batch_commit", "fused_submit", "device_fixed", "device_fixed_words",
         "mirror", "state_syncer", "replay_driver", "replay_device_commit",
         "genesis_on_device", "sender_batch_hash", "replay_windowed",
-        "window_committer_fused", "adaptive_controller", "adaptive_probe"])
+        "window_committer_fused", "adaptive_controller", "adaptive_probe",
+        "exec_validate", "exec_device_allowed"])
 def test_entry_points_raise_without_card(no_card, call):
     with pytest.raises(RuntimeError, match="is_available"):
         call()
@@ -202,7 +205,7 @@ def test_k5_wrapper_refuses_cpu_tensors():
 
 def test_build_sees_both_kernel_sources():
     assert sorted(p.name for p in build.sources()) == [
-        "fixpoint.cu", "keccak.cu", "mirror.cu"
+        "exec_validate.cu", "fixpoint.cu", "keccak.cu", "mirror.cu"
     ]
     assert [p.name for p in build.headers()] == ["keccak_f1600.cuh"]
     assert build.BUILD_DIR.name == "_build"

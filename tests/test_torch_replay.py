@@ -239,13 +239,18 @@ def test_windowed_replay_matches_reference(build, window):
 
 
 def test_parallel_replay_raises_for_multi_tx_blocks():
+    """The name is older than the port's parallel executors: a replay at
+    ``parallel_tx`` of multi-transaction blocks no longer raises; it
+    runs their transfers through the scheduled executor's fast path and
+    lands on the serially built chain."""
     cfg = workloads.replay_config()
     builder, spec, blocks = workloads.transfer_chain(cfg, 1, 2, senders=2)
     cfg = workloads.replay_config(parallel_tx=True)
     chain = Blockchain(Storages(), cfg)
     chain.load_genesis(spec)
-    with pytest.raises(NotImplementedError, match="parallel_tx"):
-        ReplayDriver(chain, cfg, device="cpu").replay(blocks)
+    stats = ReplayDriver(chain, cfg, device="cpu").replay(blocks)
+    assert (stats.txs, stats.parallel_txs, stats.fast_path_txs) == (2, 2, 2)
+    assert chain.get_header_by_number(1).hash == blocks[0].hash
 
 
 def test_sender_recovery_on_cpu_hashes_on_host():
