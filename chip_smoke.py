@@ -12,8 +12,15 @@ verify) and K6 (the execute stage's row validation: nonce equal, balance
 its plain PyTorch version on the card, then drives the port through the
 entry points a user calls:
 
-  1. build every kernel with nvcc, one process per source, and the host
-     library (native Keccak and secp256k1) with g++
+  1. build every kernel with nvcc, one process per source, while two
+     threads build the host library (native Keccak, secp256k1, the EVM
+     core and the append-log store) with g++ and the RLP extension with
+     gcc
+  1b. native_host: ``khipu_evm_test_arith`` on 10,000 seeded triples per
+     arithmetic opcode against the Python DataWord ops, and the C RLP
+     codec against ``_py_rlp_*`` on 20,000 seeded items and on malformed
+     inputs (RLPError from both), exact; base.rlp's names must be the
+     extension's; the compile log's host build times
   2. K1r in each mode vs its plain version (``absorb_ragged``) and the
      scalar oracle: the pad's and rate classes' edges, a 5,000-row mixed
      batch with 2,048 B rows (and ``keccak256_batch`` on it in input
@@ -126,6 +133,21 @@ vectorized transfers, conflicts, mispredictions) beside the serial
 execution lines of the same process. Each process-global template
 learner is reset before every replay.
 
+Every replay runs its EVM frames on the native core and its line gives
+``native_frames`` / ``python_frames`` (python 0; native > 0 where
+transactions run frames). Two Python-VM oracles rerun a chain with every
+frame on ``evm/vm.py`` (``set_backend("python")``):
+``replay_erc20_python_vm`` after 13 (every block's root, receipts and
+the three node stores equal the native run's) and
+``replay_erc20_w8_python_vm`` after 16 (roots, receipts and reachable
+nodes equal 15's); each line gives the native run's blocks/s and
+execute phase beside its own. ``replay_erc20_w8_durable`` then replays
+15's chain into ``Storages("native", <tmpdir>)``, stops it and opens a
+fresh ``Storages`` on the same directory: the reachable nodes, every
+header, body and receipt, the best block and an empty journal must
+match the memory engine's run, with 15's gates (mirror verify 0 among
+them) on the run itself.
+
 After phases 9 and 10, K3 and K4 are held against their plain versions
 on every class of that phase's mirror, whole (the padded generic
 classes the paths gave them), with the negative controls in each class.
@@ -142,12 +164,17 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GENESIS_ROOT = "d7f8974fb5ac78d9ac099b9ad5018bedc2ce0a72dad1827a1709da30580f0544"
@@ -410,6 +437,165 @@ class Launches:
         return got
 
 
+NATIVE_ARITH_OPS = ("add", "sub", "mul", "div", "mod", "sdiv", "smod",
+                    "exp", "addmod", "mulmod", "signextend", "byte", "shl",
+                    "shr", "sar")  # khipu_evm_test_arith's op codes 0..14
+RLP_BAD_INPUTS = (b"", b"\x81\x01", b"\x81", b"\xb8\x01a", b"\xb8",
+                  b"\xb9\x00\x40" + b"a" * 64, b"\xc1", b"\xc2\x83ab",
+                  b"\xf8\x01\x01", b"\x01\x02", b"\xc0\x00",
+                  b"\xbf" + b"\xff" * 8)
+
+
+def edge_words(rng, n: int) -> list:
+    """``n`` seeded 256-bit words biased to the edges: random, 64-bit,
+    8-bit, near the top, a power of two, a run of ones."""
+    mask = (1 << 256) - 1
+    kind = rng.integers(6, size=n)
+    raw = rng.bytes(32 * n)
+    small = rng.integers(256, size=n)
+    bits = rng.integers(1, 257, size=n)
+    out = []
+    for i in range(n):
+        k, sm = int(kind[i]), int(small[i])
+        out.append(int.from_bytes(raw[32 * i:32 * i + (32 if k == 0 else 8)],
+                                  "big") if k < 2 else
+                   sm if k == 2 else mask - sm if k == 3 else
+                   1 << sm if k == 4 else (1 << int(bits[i])) - 1)
+    return out
+
+
+def rlp_item(rng, depth: int = 0):
+    """A seeded RLP item: byte strings at the headers' edges, or a list
+    (nested a few levels) of items."""
+    if depth < 4 and rng.random() < 0.35:
+        return [rlp_item(rng, depth + 1)
+                for _ in range(int(rng.integers(0, 7)))]
+    n = int(rng.choice([0, 1, 1, 2, 31, 32, 55, 56, 57, 200, 255, 256, 1100]))
+    if n == 1 and rng.random() < 0.5:
+        return bytes([int(rng.integers(0x80))])  # a byte that is itself
+    return rng.bytes(n)
+
+
+def native_host_phase(np, rng, triples: int, items: int) -> dict:
+    """The native host closure on the card's host, against its oracles:
+    the EVM core's u256 arithmetic (``khipu_evm_test_arith``) against the
+    Python DataWord ops on ``triples`` seeded triples an opcode, and the
+    C RLP codec against the pure-Python one on ``items`` seeded items
+    (byte-equal) and on malformed inputs (RLPError from both). base.rlp's
+    names, and those of a module that imported them by value, must be
+    the extension's. Every comparison is exact."""
+    from khipu_tpu_torch.base import rlp
+    from khipu_tpu_torch.evm import dataword as dw
+    from khipu_tpu_torch.evm import native_vm
+    from khipu_tpu_torch.native.build import load_rlp_ext
+    from khipu_tpu_torch.trie import deferred
+
+    py_ops = (
+        lambda a, b, c: (a + b) % dw.MOD, lambda a, b, c: (a - b) % dw.MOD,
+        lambda a, b, c: (a * b) % dw.MOD,
+        lambda a, b, c: a // b if b else 0, lambda a, b, c: a % b if b else 0,
+        lambda a, b, c: dw.sdiv(a, b), lambda a, b, c: dw.smod(a, b),
+        lambda a, b, c: pow(a, b, dw.MOD),
+        lambda a, b, c: (a + b) % c if c else 0,
+        lambda a, b, c: (a * b) % c if c else 0,
+        lambda a, b, c: dw.signextend(a, b), lambda a, b, c: dw.byte_at(a, b),
+        lambda a, b, c: (b << a) % dw.MOD if a < 256 else 0,
+        lambda a, b, c: b >> a if a < 256 else 0,
+        lambda a, b, c: dw.sar(a if a < 256 else 256, b),
+    )
+    t0 = time.perf_counter()
+    for op, (name, fn) in enumerate(zip(NATIVE_ARITH_OPS, py_ops)):
+        words = edge_words(rng, 3 * triples)
+        for i in range(0, 3 * triples, 3):
+            a, b, c = words[i:i + 3]
+            check(native_vm.test_arith(op, a, b, c) == fn(a, b, c),
+                  f"khipu_evm_test_arith {name} != DataWord: "
+                  f"a={a:x} b={b:x} c={c:x}")
+    arith_s = time.perf_counter() - t0
+
+    def timed(fn, data):
+        """``fn`` over ``data`` and its seconds, with the cyclic garbage
+        collector off (a collection of this phase's live lists would
+        otherwise land in whichever loop allocates next)."""
+        gc.collect()
+        gc.disable()
+        try:
+            t = time.perf_counter()
+            out = [fn(x) for x in data]
+            return out, time.perf_counter() - t
+        finally:
+            gc.enable()
+
+    ext = load_rlp_ext()
+    corpus = [rlp_item(rng) for _ in range(items)]
+    enc_c, c_encode_s = timed(rlp.rlp_encode, corpus)
+    enc_py, py_encode_s = timed(rlp._py_rlp_encode, corpus)
+    check(enc_c == enc_py, "the C RLP encoder != _py_rlp_encode")
+    dec_c, c_decode_s = timed(rlp.rlp_decode, enc_c)
+    dec_py, py_decode_s = timed(rlp._py_rlp_decode, enc_c)
+    check(dec_c == dec_py == corpus, "the C RLP decoder != _py_rlp_decode")
+    for bad in RLP_BAD_INPUTS:
+        for decode in (rlp.rlp_decode, rlp._py_rlp_decode):
+            try:
+                decode(bad)
+            except rlp.RLPError:
+                continue
+            raise AssertionError(f"{bad.hex()} decoded without RLPError")
+    check(rlp.rlp_encode is ext.encode and rlp.rlp_decode is ext.decode
+          and deferred.rlp_encode is ext.encode
+          and deferred.rlp_decode is ext.decode,
+          "base.rlp's names do not reach the C extension")
+    return {"phase": "native_host", "arith_ops": len(py_ops),
+            "arith_triples_per_op": triples, "arith_seconds": arith_s,
+            "rlp_items": items, "rlp_bytes": sum(map(len, enc_c)),
+            "rlp_error_inputs": len(RLP_BAD_INPUTS),
+            "rlp_extension": os.path.basename(ext.__file__),
+            "host_codec_s": {"c_encode": c_encode_s, "py_encode": py_encode_s,
+                             "c_decode": c_decode_s, "py_decode": py_decode_s},
+            "host_codec_speedup": {"encode": py_encode_s / c_encode_s,
+                                   "decode": py_decode_s / c_decode_s}}
+
+
+NODE_STORES = ("account_node_storage", "storage_node_storage",
+               "evmcode_storage")
+
+
+@contextmanager
+def vm_frames(backend=None):
+    """Run every VM frame on ``backend`` (None: the native core, the
+    default; "python": the Python VM) and count the frames each backend
+    ran into the dict it yields; no frame may run on the other one."""
+    from khipu_tpu_torch.evm import dispatch
+
+    before, frames = dict(dispatch.VM_GAUGES), {}
+    dispatch.set_backend(backend)
+    try:
+        yield frames
+    finally:
+        dispatch.set_backend(None)
+    frames.update({k: dispatch.VM_GAUGES[k] - before[k] for k in before},
+                  vm_backend=backend or "native")
+    other = "native_frames" if backend == "python" else "python_frames"
+    check(frames[other] == 0, f"{frames[other]} frames ran on the other VM "
+          f"than {frames['vm_backend']}")
+
+
+def same_chain(a, b, n: int, what: str) -> None:
+    """Two replays of one chain into the memory engine: every block's
+    root and receipts, and the three node stores, byte-equal."""
+    for i in range(1, n + 1):
+        check(a.get_header_by_number(i).state_root
+              == b.get_header_by_number(i).state_root,
+              f"{what}: block {i}'s root")
+        check(a.storages.receipts_storage.get(i)
+              == b.storages.receipts_storage.get(i),
+              f"{what}: block {i}'s receipts")
+    for store in NODE_STORES:
+        check(getattr(a.storages, store).source._map
+              == getattr(b.storages, store).source._map,
+              f"{what}: {store} differs")
+
+
 def replay_phases(args, torch, dev, launches, packed, hold_ragged) -> tuple:
     """Phases 11-13: regular-sync replay, block by block, on the card.
     Returns the largest difference of K1r from its plain version on the
@@ -431,11 +617,12 @@ def replay_phases(args, torch, dev, launches, packed, hold_ragged) -> tuple:
                                 "mainnet_genesis_alloc.txt.gz")
     serial, chains = {}, {}
 
-    def replay(name, cfg, spec, blocks, source=None, **extra):
+    def replay(name, cfg, spec, blocks, source=None, backend=None, **extra):
         """Load ``spec`` on the card, replay ``blocks`` (after a wire round
         trip) with ``device_commit``, gate it and emit its line. With
         ``source`` (the host-built chain) the node stores and receipts
-        must equal its own. K5 and K6 must not launch."""
+        must equal its own. K5 and K6 must not launch. Every frame runs on
+        the native VM, or with ``backend="python"`` on the Python VM."""
         wire = [Block.decode(b.encode()) for b in blocks]
         target = Blockchain(Storages(), cfg)
         launches.zero()
@@ -447,9 +634,10 @@ def replay_phases(args, torch, dev, launches, packed, hold_ragged) -> tuple:
         prefetch.flush_sender_cache()
         batches0 = prefetch.PREFETCH_GAUGES["device_batches"]
         launches.zero()
-        stats = ReplayDriver(target, cfg, device_commit=True,
-                             device=dev).replay(wire)
-        torch.cuda.synchronize()
+        with vm_frames(backend) as frames:
+            stats = ReplayDriver(target, cfg, device_commit=True,
+                                 device=dev).replay(wire)
+            torch.cuda.synchronize()
         path = launches.read(name, ("k1r",))
         check(path["k5"] == path["k6"] == 0,
               f"{name}: a block-by-block replay launched K5 or K6")
@@ -458,6 +646,8 @@ def replay_phases(args, torch, dev, launches, packed, hold_ragged) -> tuple:
         with_txs = sum(1 for b in wire if b.body.transactions)
         check(senders == with_txs, f"{name}: {senders} sender batches on the "
               f"card for {with_txs} blocks with transactions")
+        check(not with_txs or frames[f"{frames['vm_backend']}_frames"] > 0,
+              f"{name}: no frame ran on the {frames['vm_backend']} VM")
         flush = path["k1r"] - senders
         check(flush > 0, f"{name}: no trie commit launched K1r")
         check(stats.blocks == len(wire), f"{name}: replayed {stats.blocks} "
@@ -467,8 +657,7 @@ def replay_phases(args, torch, dev, launches, packed, hold_ragged) -> tuple:
               and target.get_header_by_number(head.number).state_root
               == head.state_root, f"{name}: final state root differs")
         if source is not None:
-            for store in ("account_node_storage", "storage_node_storage",
-                          "evmcode_storage"):
+            for store in NODE_STORES:
                 check(getattr(target.storages, store).source._map
                       == getattr(source.storages, store).source._map,
                       f"{name}: {store} != the host-built chain's")
@@ -490,7 +679,8 @@ def replay_phases(args, torch, dev, launches, packed, hold_ragged) -> tuple:
               "parallel_txs": stats.parallel_txs,
               "conflicts": stats.conflicts,
               "parallel_rate": stats.parallel_rate,
-              "launches": path, "root": head.state_root.hex(), **extra})
+              "launches": path, "root": head.state_root.hex(), **frames,
+              **extra})
         return target
 
     def record_commits(cfg, spec, blocks):
@@ -540,16 +730,26 @@ def replay_phases(args, torch, dev, launches, packed, hold_ragged) -> tuple:
     builder, spec, blocks = workloads.erc20_chain(
         replay_cfg, args.erc20_blocks, erc20_txs, holders)
     build_s = time.perf_counter() - t0
-    replay("replay_erc20", replay_cfg, spec, blocks, builder.blockchain,
-           build_seconds=build_s, holders=holders,
-           transfers=args.erc20_blocks * erc20_txs,
-           reduced=f"{args.erc20_blocks} synthetic blocks of {erc20_txs} "
-           "token transfers after a deploy block, in place of BASELINE #4's "
-           "10,000 mainnet blocks (15.50M-15.51M, ~200 tx a block)")
+    erc20 = replay(
+        "replay_erc20", replay_cfg, spec, blocks, builder.blockchain,
+        build_seconds=build_s, holders=holders,
+        transfers=args.erc20_blocks * erc20_txs,
+        reduced=f"{args.erc20_blocks} synthetic blocks of {erc20_txs} "
+        "token transfers after a deploy block, in place of BASELINE #4's "
+        "10,000 mainnet blocks (15.50M-15.51M, ~200 tx a block)")
     check(len(blocks) == args.erc20_blocks + 1 and all(
         len(b.body.transactions) == erc20_txs for b in blocks[1:]),
         "replay_erc20 is not 200 transfers a block")
     chains["replay_erc20"] = (builder, spec, blocks, serial["replay_erc20"])
+    # the Python-VM oracle: the same chain with every frame on evm/vm.py
+    native = serial["replay_erc20"]
+    oracle = replay("replay_erc20_python_vm", replay_cfg, spec, blocks,
+                    builder.blockchain, backend="python",
+                    native_vm={"blocks_per_s": native.blocks_per_s,
+                               "execute_s": native.phases["execute"],
+                               "seconds": native.seconds})
+    same_chain(erc20, oracle, len(blocks), "replay_erc20_python_vm")
+    del erc20, oracle
     # K1r vs its plain version, both modes, on the commits' batches
     recorded, k1r_err, packs = record_commits(replay_cfg, spec, blocks), 0, []
     for i, msgs in enumerate(recorded):
@@ -820,14 +1020,17 @@ def windowed_phases(args, torch, dev, launches, chains) -> dict:
         return target, nodes, recorded, stats, gauge_deltas(gauges)
 
     def card_run(name, spec, blocks, window, source, ref, cfg=None,
-                 nodes=None):
+                 nodes=None, backend=None, storages=Storages, keep=None):
         """``blocks`` replayed windowed on the card at ``cfg`` (serial
         execution at ``window`` by default), gated against ``ref`` (the
         CPU replay's chain) and ``nodes`` (the reachable nodes it must
-        give, by default ``name``'s CPU reference's)."""
+        give, by default ``name``'s CPU reference's). Every frame runs on
+        the native VM, or with ``backend="python"`` on the Python VM; the
+        chain goes into ``storages()``. ``keep`` receives the chain and
+        its reachable nodes."""
         cfg = cfg or workloads.replay_config(commit_window_blocks=window)
         wire = [Block.decode(b.encode()) for b in blocks]
-        target = Blockchain(Storages(), cfg)
+        target = Blockchain(storages(), cfg)
         launches.zero()
         t0 = time.perf_counter()
         target.load_genesis(spec, on_device=True, device=dev)
@@ -843,8 +1046,9 @@ def windowed_phases(args, torch, dev, launches, chains) -> dict:
         reset_learner()
         gauges = dict(EXEC_GAUGES)
         launches.zero()
-        stats = driver.replay(wire)
-        torch.cuda.synchronize()
+        with vm_frames(backend) as frames:
+            stats = driver.replay(wire)
+            torch.cuda.synchronize()
         exec_gauges = gauge_deltas(gauges)
         mirror = driver._mirror
         bad = mirror.verify()
@@ -885,6 +1089,12 @@ def windowed_phases(args, torch, dev, launches, chains) -> dict:
               f"{name}: verify_reachable {report}")
         check(got_nodes == (nodes or ref_nodes[name]), f"{name}: reachable "
               "nodes != the CPU windowed replay's")
+        check("erc20" not in name
+              or frames[f"{frames['vm_backend']}_frames"] > 0,
+              f"{name}: no contract frame ran on the {frames['vm_backend']} "
+              "VM")
+        if keep is not None:
+            keep.update(chain=target, nodes=got_nodes)
         return {"blocks": stats.blocks, "txs": stats.txs,
                 "seconds": stats.seconds, "blocks_per_s": stats.blocks_per_s,
                 "tx_per_s": stats.txs / stats.seconds,
@@ -907,7 +1117,7 @@ def windowed_phases(args, torch, dev, launches, chains) -> dict:
                 "unspilled_evictions": MIRROR_GAUGES["unspilled_evictions"]
                 - before["unspilled"],
                 "persist_bytes_per_s": stats.persist_bytes_per_sec,
-                "root": head.hex()}
+                "root": head.hex(), **frames}
 
     erc20_txs, holders = 200, 256
     t0 = time.perf_counter()
@@ -934,7 +1144,11 @@ def windowed_phases(args, torch, dev, launches, chains) -> dict:
             # gated alike, and the line gives both
             first = card_run(name, spec, blocks, window, builder.blockchain,
                              ref)
-        run = card_run(name, spec, blocks, window, builder.blockchain, ref)
+        kept = {}
+        run = card_run(name, spec, blocks, window, builder.blockchain, ref,
+                       keep=kept)
+        if name == "replay_erc20_w8":
+            erc20_w8 = (spec, blocks, builder, ref, kept)
         shapes = [k5_at_window(torch, dev, fused, tr,
                                deferred._PLACEHOLDER_PREFIX, tile, pos)
                   for tr, tile, pos in recorded]
@@ -966,7 +1180,71 @@ def windowed_phases(args, torch, dev, launches, chains) -> dict:
                 "state")
         emit(line)
         lines[name] = line
-        del ref, recorded
+        del ref, recorded, kept
+
+    # the Python-VM oracle: replay_erc20_w8's chain again with every frame
+    # on evm/vm.py; roots, receipts and reachable nodes equal the native
+    # run's (the measured one above, ``mem``)
+    name = "replay_erc20_w8"
+    spec, blocks, builder, ref, mem = erc20_w8
+    native = {k: lines[name][k] for k in ("blocks_per_s", "execute_s",
+                                          "seconds")}
+    py = {}
+    run = card_run(f"{name}_python_vm", spec, blocks, 8, builder.blockchain,
+                   ref, nodes=ref_nodes[name], backend="python", keep=py)
+    for i in range(1, len(blocks) + 1):
+        check(py["chain"].get_header_by_number(i).state_root
+              == mem["chain"].get_header_by_number(i).state_root
+              and py["chain"].storages.receipts_storage.get(i)
+              == mem["chain"].storages.receipts_storage.get(i),
+              f"{name}_python_vm: block {i}'s root or receipts != native")
+    check(py["nodes"] == mem["nodes"], f"{name}_python_vm: reachable nodes "
+          "!= the native VM run's")
+    emit({"phase": f"{name}_python_vm", "window": 8, **run,
+          "native_vm": native})
+    del py
+
+    # durability: the same chain into the native append-log engine, then
+    # stopped and reopened in this process
+    data_dir = tempfile.mkdtemp(prefix="khipu_durable_")
+    durable = {}
+    try:
+        run = card_run(f"{name}_durable", spec, blocks, 8,
+                       builder.blockchain, ref, nodes=ref_nodes[name],
+                       storages=lambda: Storages("native", data_dir),
+                       keep=durable)
+        durable["chain"].storages.stop()
+        del durable
+        t0 = time.perf_counter()
+        reopened = Blockchain(Storages("native", data_dir),
+                              workloads.replay_config(commit_window_blocks=8))
+        reopen_s = time.perf_counter() - t0
+        head = blocks[-1].header
+        report, nodes = reachable(reopened.storages, head.state_root)
+        check(report.missing == 0 and report.corrupt == 0
+              and nodes == mem["nodes"], f"{name}_durable: the reopened "
+              f"store's reachable nodes != the memory engine's ({report})")
+        for i in range(len(blocks) + 1):
+            for store in ("block_header_storage", "block_body_storage",
+                          "receipts_storage"):
+                got = getattr(reopened.storages, store).get(i)
+                check((got is not None or i == 0) and got == getattr(
+                    mem["chain"].storages, store).get(i),
+                    f"{name}_durable: block {i}'s {store} after reopening")
+        check(reopened.best_block_number == head.number,
+              f"{name}_durable: best block {reopened.best_block_number}")
+        check(reopened.storages.window_journal.pending() == [],
+              f"{name}_durable: journal intents pending after reopening")
+        data_bytes = sum(os.path.getsize(os.path.join(data_dir, f))
+                         for f in os.listdir(data_dir))
+        reopened.storages.stop()
+        emit({"phase": f"{name}_durable", "window": 8, "engine": "native",
+              **run, "reopen_seconds": reopen_s, "data_bytes": data_bytes,
+              "memory_engine": native})
+        del reopened
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+    del erc20_w8, mem, ref
 
     # parallel and scheduled execution (the default parallel_tx and
     # scheduled_tx), beside the serial-execution lines above
@@ -1068,6 +1346,8 @@ def main() -> int:
     ap.add_argument("--par-transfer-blocks", type=int, default=32)
     ap.add_argument("--prebyz-blocks", type=int, default=32)
     ap.add_argument("--k6-rows", type=int, default=1 << 20)
+    ap.add_argument("--arith-triples", type=int, default=10_000)
+    ap.add_argument("--rlp-items", type=int, default=20_000)
     args = ap.parse_args()
 
     import torch
@@ -1109,22 +1389,42 @@ def main() -> int:
     launches = Launches(keccak_cuda, fixpoint_cuda, mirror_cuda,
                         exec_validate_cuda)
 
-    # 1. build ------------------------------------------------------------
-    t0 = time.perf_counter()
-    build.load()
-    kernels_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    host_lib = native_build.load_library()
-    check(host_lib is native_build.load_library() and
-          hasattr(host_lib, "khipu_ecdsa_recover_batch"),
-          "the host library did not load")
+    # 1. build: nvcc for the kernels while g++ builds the host library and
+    # gcc the RLP extension ----------------------------------------------
+    def timed(fn):
+        t = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t
+
+    with ThreadPoolExecutor(2) as pool:
+        host_job = pool.submit(timed, native_build.load_library)
+        ext_job = pool.submit(timed, native_build.load_rlp_ext)
+        t0 = time.perf_counter()
+        build.load()
+        kernels_s = time.perf_counter() - t0
+        host_lib, host_s = host_job.result()
+        rlp_ext, ext_s = ext_job.result()
+    check(host_lib is native_build.load_library() and all(
+        hasattr(host_lib, f) for f in ("khipu_ecdsa_recover_batch",
+                                       "khipu_evm_call", "kstore_open")),
+        "the host library did not load")
     emit({"phase": "build", "seconds": kernels_s,
           "sources": [str(p.relative_to(ROOT)) for p in build.sources()],
           "ptxas": ptxas_by_kernel(build.BUILD_LOG),
           "host_library": os.path.basename(host_lib._name),
           "host_sources": [str(p.relative_to(ROOT))
                            for p in native_build.sources()],
-          "host_seconds": time.perf_counter() - t0})
+          "host_seconds": host_s,
+          "rlp_extension": os.path.basename(rlp_ext.__file__),
+          "rlp_extension_seconds": ext_s})
+    # 1b. the native host closure against its oracles
+    host = native_host_phase(np, np.random.default_rng([args.seed, 8]),
+                             args.arith_triples, args.rlp_items)
+    host["builds"] = [
+        {"kind": kind, "output": label, "seconds": sec}
+        for kind, label, sec in observability.compile_log.events
+        if label.startswith(("libkhipu_host_", "khipu_rlp_ext_"))]
+    emit(host)
 
     # 2. K1r against its plain version and the scalar oracle -------------
     def packed(msgs):

@@ -12,12 +12,15 @@ Encoding rules (Yellow Paper app. B):
   * 0-55 byte list payload: 0xc0+len prefix
   * longer list payload: 0xf7+len(len) prefix then big-endian length
 
-This is the pure-Python codec only: the port carries no native
-extension, so every caller runs the same code on every host.
+``rlp_encode`` / ``rlp_decode`` run the C codec
+(``native/csrc_ext/rlp_ext.c``), built by ``native/build.py`` at the
+first call; ``_py_rlp_encode`` / ``_py_rlp_decode`` are the pure-Python
+oracles the tests hold it against.
 """
 
 from __future__ import annotations
 
+import sys
 from typing import Any, List, Sequence, Tuple, Union
 
 from khipu_tpu_torch.base.bytes_util import big_endian_to_int, int_to_big_endian
@@ -67,9 +70,6 @@ def _py_rlp_encode(item: RLPItem, _depth: int = 0) -> bytes:
         )
         return _encode_length(len(payload), 0xC0) + payload
     raise RLPError(f"cannot RLP-encode {type(item)!r}")
-
-
-rlp_encode = _py_rlp_encode
 
 
 def _decode_at(data: bytes, pos: int, _depth: int = 0) -> Tuple[Any, int]:
@@ -140,7 +140,55 @@ def _py_rlp_decode(data: bytes) -> Any:
     return item
 
 
-rlp_decode = _py_rlp_decode
+# The C codec: the hottest host loop of trie commits (every node encode,
+# the seal stage's scan of the staged nodes, fast sync's child walk).
+# The names start as one-hop forwarders through ``_impl``. The first
+# call builds and loads the extension synchronously (a failed build
+# raises: there is no pure-Python fallback), points ``_impl`` at its
+# functions and rebinds ``rlp_encode`` / ``rlp_decode`` here and in every
+# loaded port module that imported the forwarders by value; a module
+# imported later takes the C functions from here.
+def _bind_rlp_ext() -> None:
+    global rlp_encode, rlp_decode
+    from khipu_tpu_torch.native.build import load_rlp_ext
+
+    ext = load_rlp_ext()
+    ext._set_error(RLPError)
+    _impl[0], _impl[1] = ext.encode, ext.decode
+    swaps = ((_forward_encode, ext.encode), (_forward_decode, ext.decode))
+    for name, mod in list(sys.modules.items()):
+        if mod is None or not name.startswith("khipu_tpu_torch."):
+            continue
+        for attr, (forwarder, fn) in zip(("rlp_encode", "rlp_decode"),
+                                         swaps):
+            if getattr(mod, attr, None) is forwarder:
+                setattr(mod, attr, fn)
+
+
+def _first_encode(item):
+    _bind_rlp_ext()
+    return _impl[0](item)
+
+
+def _first_decode(data):
+    _bind_rlp_ext()
+    return _impl[1](data)
+
+
+_impl = [_first_encode, _first_decode]
+
+
+def rlp_encode(item: RLPItem) -> bytes:
+    """Encode bytes / nested lists of bytes (the C codec)."""
+    return _impl[0](item)
+
+
+def rlp_decode(data: bytes) -> Any:
+    """Decode a single RLP item; raises on trailing bytes (the C codec)."""
+    return _impl[1](data)
+
+
+_forward_encode, _forward_decode = rlp_encode, rlp_decode
 
 
 def rlp_decode_first(data: bytes):

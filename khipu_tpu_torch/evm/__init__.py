@@ -1,4 +1,5 @@
-"""EVM: fork-gated interpreter, gas schedules, precompiles.
+"""EVM: fork-gated interpreter, gas schedules, precompiles; the native
+C++ core's adapter (``native_vm``) and the per-frame backend dispatch.
 
 Parity: khipu-eth/src/main/scala/khipu/vm/ (VM.scala, OpCode.scala,
 EvmConfig.scala, Stack/Memory/Program, PrecompiledContracts.scala) and

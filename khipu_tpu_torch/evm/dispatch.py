@@ -1,10 +1,21 @@
-"""VM backend dispatch.
+"""VM backend dispatch: the native C++ core unless a rule routes to Python.
 
 The ledger calls `run_message_call` / `run_create` instead of binding
-directly to evm.vm. The port has the Python interpreter only: the JAX
-package's native C++ core (``native/csrc/evm.cc``) is not ported yet
-(ROADMAP), so forcing it with ``set_backend("native")`` or
-``KHIPU_VM_BACKEND=native`` raises instead of running Python quietly.
+directly to evm.vm; each call picks the backend. A frame runs on the
+native core (``native/csrc/evm.cc`` through ``evm/native_vm.py``) unless
+
+  * the backend is forced to Python, by ``set_backend("python")`` or
+    ``KHIPU_VM_BACKEND=python``;
+  * an opcode trace is active (debug tracing hooks the Python loop);
+  * the frame's gas is at least the native core's int64 budget (never on
+    real chains).
+
+These are routing rules, not fallbacks: a failed build of the host
+library or a failed native call raises, and nothing then runs the
+Python VM in its place. Both backends produce identical ProgramResults
+and identical world write-log / read-set effects
+(tests/test_torch_native_evm.py). ``VM_GAUGES`` counts the top-level
+frames each backend ran.
 """
 
 from __future__ import annotations
@@ -12,9 +23,14 @@ from __future__ import annotations
 import os
 from typing import Optional, Tuple
 
+from khipu_tpu_torch.evm import native_vm
 from khipu_tpu_torch.evm import vm as pyvm
 from khipu_tpu_torch.evm.config import EvmConfig
 from khipu_tpu_torch.evm.vm import MessageEnv, ProgramResult
+from khipu_tpu_torch.observability import REGISTRY
+
+VM_GAUGES = REGISTRY.gauge_group("khipu_vm", {
+    "native_frames": 0, "python_frames": 0})
 
 _FORCED: Optional[str] = None  # None=auto | "python" | "native"
 
@@ -25,12 +41,21 @@ def set_backend(name: Optional[str]) -> None:
     _FORCED = name
 
 
-def _check_backend() -> None:
-    if (_FORCED or os.environ.get("KHIPU_VM_BACKEND")) == "native":
-        raise NotImplementedError(
-            "the native VM backend (native/csrc/evm.cc) is not ported to "
-            "khipu_tpu_torch yet (ROADMAP); only the Python VM runs"
-        )
+def use_native(gas: int) -> bool:
+    forced = _FORCED or os.environ.get("KHIPU_VM_BACKEND")
+    if forced == "python":
+        return False
+    if pyvm._TRACE is not None:  # opcode tracing hooks the Python loop
+        return False
+    ok = gas < native_vm.MAX_NATIVE_GAS
+    if forced == "native" and not ok:
+        raise RuntimeError(f"native VM backend forced for {gas} gas, over "
+                           "the native core's budget")
+    return ok
+
+
+def _count(native: bool) -> None:
+    REGISTRY.inc(VM_GAUGES, "native_frames" if native else "python_frames")
 
 
 def run_message_call(
@@ -46,9 +71,17 @@ def run_message_call(
     """Top-level message call (execute_transaction's CALL path).
 
     ``pre_transfer``: apply the tx-level value transfer + target touch
-    inside the frame (so it rolls back with the frame), on a world copy.
+    inside the frame (so it rolls back with the frame). The Python path
+    applies it to a world copy; the native path emits it into the
+    frame's op log.
     """
-    _check_backend()
+    native = use_native(gas)
+    _count(native)
+    if native:
+        return native_vm.native_execute_message(
+            config, world, block, env, code, gas, code_address,
+            pre_transfer=pre_transfer,
+        )
     target = world
     if pre_transfer:
         target = world.copy()
@@ -73,7 +106,13 @@ def run_create(
     depth: int,
 ) -> Tuple[ProgramResult, bytes]:
     """Top-level contract creation (execute_transaction's CREATE path)."""
-    _check_backend()
+    native = use_native(gas)
+    _count(native)
+    if native:
+        return native_vm.native_create_contract(
+            config, world, block, caller, origin, new_addr, gas,
+            gas_price, value, init_code, depth,
+        )
     return pyvm.create_contract(
         config, world, block, caller, origin, new_addr, gas, gas_price,
         value, init_code, depth,

@@ -1,4 +1,5 @@
-"""Host-side native code: the scalar Keccak sponge and the secp256k1
-curve arithmetic in C++, built with g++ at first use (``build.py``) and
-bound with ctypes. The port's counterpart of ``khipu_tpu.native``
-without the native EVM and the append-log store."""
+"""Host-side native code: the scalar Keccak sponge, the secp256k1 curve
+arithmetic, the EVM interpreter core and the append-log store in C++,
+built with g++ at first use into one library and bound with ctypes, and
+the CPython RLP codec, built with gcc (``build.py``). The port's
+counterpart of ``khipu_tpu.native``."""

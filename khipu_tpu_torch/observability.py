@@ -10,10 +10,11 @@ movement ledger). This module is what those call sites need:
   lock: the replay driver and its sender-prefetch thread both time
   ``keccak.*`` spans.
 * ``REGISTRY.gauge_group(name, defaults)`` — a get-or-create dict of
-  counters. The port's registry is its own object, so nothing here can
-  reset or share a gauge of the JAX package.
+  counters; ``REGISTRY.inc(group, key)`` raises one under the
+  registry's lock. The port's registry is its own object, so nothing
+  here can reset or share a gauge of the JAX package.
 * ``compile_log`` — build and shape-cache events (hit / miss with
-  seconds), written by ``ops/build.py``.
+  seconds), written by ``ops/build.py`` and ``native/build.py``.
 """
 
 from __future__ import annotations
@@ -63,6 +64,12 @@ class _Registry:
             if group is None:
                 group = self._groups[name] = dict(defaults)
             return group
+
+    def inc(self, group: Dict[str, float], key: str, n: float = 1) -> None:
+        """Add ``n`` to one counter of a group, under the registry's lock
+        (several threads execute frames)."""
+        with self._lock:
+            group[key] += n
 
 
 REGISTRY = _Registry()

@@ -5,11 +5,16 @@ The port's counterpart of ``khipu_tpu.storage.storages`` (parity:
 khipu-eth/.../storage/Storages.scala:6-81: account/storage/evmcode
 NodeStorages, header/body/receipts/td block storages, blocknum, tx,
 appState; bestBlockNumber = min(bestBody, bestReceipts) :40) and the
-window-commit journal's topic. It carries the ``memory`` engine only;
-the native, sqlite and kesque engines are not ported yet.
+window-commit journal's topic, with ServiceBoard.scala:99-138's engine
+selection by ``db.engine``: ``memory`` | ``native`` (the C++ append-log,
+``native/store.py``) | ``sqlite`` (the embedded-KV alternative,
+``storage/sqlite_engine.py``). The log-structured ``kesque`` engine is
+not ported yet (ROADMAP A7).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 from khipu_tpu_torch.storage.app_state import AppStateStorage
 from khipu_tpu_torch.storage.block_storage import (
@@ -28,32 +33,63 @@ from khipu_tpu_torch.storage.node_storage import NodeStorage
 
 
 class Storages:
-    def __init__(self, engine: str = "memory"):
-        if engine != "memory":
-            raise ValueError(
-                f"db.engine {engine!r} is not ported; khipu_tpu_torch has "
-                "the 'memory' engine only"
-            )
+    def __init__(self, engine: str = "memory", data_dir: Optional[str] = None,
+                 unconfirmed_depth: int = 20, cache_size: int = 1 << 20):
         self.engine = engine
+        if engine == "memory":
+            node_src = lambda topic: MemoryNodeDataSource()
+            block_src = lambda topic: MemoryBlockDataSource()
+            kv_src = lambda topic: MemoryKeyValueDataSource()
+        elif engine == "native":
+            if data_dir is None:
+                raise ValueError("native engine requires data_dir")
+            from khipu_tpu_torch.native.store import (
+                NativeBlockDataSource,
+                NativeKeyValueDataSource,
+                NativeNodeDataSource,
+            )
+
+            node_src = lambda topic: NativeNodeDataSource(data_dir, topic)
+            block_src = lambda topic: NativeBlockDataSource(data_dir, topic)
+            kv_src = lambda topic: NativeKeyValueDataSource(data_dir, topic)
+        elif engine == "sqlite":
+            if data_dir is None:
+                raise ValueError("sqlite engine requires data_dir")
+            from khipu_tpu_torch.storage.sqlite_engine import (
+                SqliteBlockDataSource,
+                SqliteKeyValueDataSource,
+                SqliteNodeDataSource,
+            )
+
+            node_src = lambda topic: SqliteNodeDataSource(data_dir, topic)
+            block_src = lambda topic: SqliteBlockDataSource(data_dir, topic)
+            kv_src = lambda topic: SqliteKeyValueDataSource(data_dir, topic)
+        elif engine == "kesque":
+            raise ValueError("db.engine 'kesque' is not ported to "
+                             "khipu_tpu_torch yet (ROADMAP A7)")
+        else:
+            raise ValueError(f"unknown db.engine {engine!r}")
+
         # topic names match DbConfig.scala:11-21
-        self.account_node_storage = NodeStorage(MemoryNodeDataSource())
-        self.storage_node_storage = NodeStorage(MemoryNodeDataSource())
-        self.evmcode_storage = NodeStorage(MemoryNodeDataSource())
-        self.block_header_storage = BlockBytesStorage(MemoryBlockDataSource())
-        self.block_body_storage = BlockBytesStorage(MemoryBlockDataSource())
-        self.receipts_storage = BlockBytesStorage(MemoryBlockDataSource())
+        self.account_node_storage = NodeStorage(
+            node_src("account"), unconfirmed_depth, cache_size)
+        self.storage_node_storage = NodeStorage(
+            node_src("storage"), unconfirmed_depth, cache_size)
+        self.evmcode_storage = NodeStorage(
+            node_src("evmcode"), unconfirmed_depth, cache_size)
+        self.block_header_storage = BlockBytesStorage(block_src("header"))
+        self.block_body_storage = BlockBytesStorage(block_src("body"))
+        self.receipts_storage = BlockBytesStorage(block_src("receipts"))
         self.total_difficulty_storage = TotalDifficultyStorage(
-            MemoryBlockDataSource())
-        self.block_number_storage = BlockNumberStorage(
-            MemoryKeyValueDataSource())
+            block_src("td"))
+        self.block_number_storage = BlockNumberStorage(kv_src("blocknum"))
         self.block_numbers = BlockNumbers(
             self.block_number_storage, self.block_header_storage)
-        self.transaction_storage = TransactionStorage(
-            MemoryKeyValueDataSource())
-        self.app_state = AppStateStorage(MemoryKeyValueDataSource())
+        self.transaction_storage = TransactionStorage(kv_src("tx"))
+        self.app_state = AppStateStorage(kv_src("appstate"))
         # write-ahead window-commit journal records (sync/journal.py);
         # same engine and durability as the block stores
-        self.journal_source = MemoryKeyValueDataSource()
+        self.journal_source = kv_src("journal")
         self._window_journal = None
         self._node_storages = (
             self.account_node_storage,
@@ -100,3 +136,42 @@ class Storages:
             if v is not None:
                 return v
         return None
+
+    def switch_to_unconfirmed(self) -> None:
+        for s in self._node_storages:
+            s.switch_to_unconfirmed()
+
+    def clear_unconfirmed(self) -> None:
+        for s in self._node_storages:
+            s.clear_unconfirmed()
+
+    def _all_sources(self):
+        for s in self._node_storages:
+            yield s.source
+        yield self.block_header_storage.source
+        yield self.block_body_storage.source
+        yield self.receipts_storage.source
+        yield self.total_difficulty_storage.source
+        yield self.block_number_storage.source
+        yield self.transaction_storage.source
+        yield self.app_state.source
+        yield self.journal_source
+
+    def flush(self) -> None:
+        """Land the node stores' unconfirmed rings and flush every
+        source that buffers (the persistent engines)."""
+        for s in self._node_storages:
+            s.flush()
+        for src in self._all_sources():
+            fl = getattr(src, "flush", None)
+            if fl:
+                fl()
+
+    def stop(self) -> None:
+        """Flush, then close every source (a persistent engine's files
+        can then be reopened by a new ``Storages``)."""
+        self.flush()
+        for src in self._all_sources():
+            stop = getattr(src, "stop", None)
+            if stop:
+                stop()

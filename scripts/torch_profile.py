@@ -27,7 +27,13 @@ by kernel name, and the launches, device time and share of the busy
 time of K5 (the fixpoint kernel), of K1r (the batched sponge of fast
 sync's content check and of the replays' trie commits and sender
 batches) and of K6 (the row validation); the replays also give K1r's,
-K5's and K6's device ms a block.
+K5's and K6's device ms a block, and the frames the native VM and the
+Python VM ran. ``focus_s`` picks the spans the native host closure
+should move: ``seal.dispatch_build`` (the seal stage's scan, RLP-decoding
+every staged node) and ``fastsync.fetch`` (fast sync's fetch and child
+decode). ``--beside FILE`` (this script's output from another tree, for
+instance the parent commit's, run in the same call) puts that run's
+focus spans beside this one's.
 Chrome traces go to ``DIR`` (default ``_profiles/``, which
 ``.gitignore`` lists).
 Exits 2 without a card.
@@ -43,6 +49,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FOCUS_SPANS = ("seal.dispatch_build", "fastsync.fetch")
 
 
 def emit(obj) -> None:
@@ -104,8 +111,18 @@ def main() -> int:
     ap.add_argument("--out", default=os.path.join(ROOT, "_profiles"))
     ap.add_argument("--only", default="",
                     help="comma-separated workload names (default: all)")
+    ap.add_argument("--beside", default="",
+                    help="an earlier run's output, whose focus spans each "
+                    "line repeats")
     args = ap.parse_args()
     only = set(filter(None, args.only.split(",")))
+    beside = {}
+    if args.beside:
+        with open(args.beside) as f:
+            for raw in f:
+                if raw.startswith("{"):
+                    earlier = json.loads(raw)
+                    beside[earlier["workload"]] = earlier.get("spans_s", {})
 
     import torch
 
@@ -120,6 +137,7 @@ def main() -> int:
     from khipu_tpu_torch import observability, workloads
     from khipu_tpu_torch.domain.block import Block
     from khipu_tpu_torch.domain.blockchain import Blockchain
+    from khipu_tpu_torch.evm.dispatch import VM_GAUGES
     from khipu_tpu_torch.ledger.schedule import reset_learner
     from khipu_tpu_torch.ops import build
     from khipu_tpu_torch.state import load_reference_nodes
@@ -145,12 +163,14 @@ def main() -> int:
     def measure(name, fn, **extra):
         observability.SPAN_TOTALS.clear()
         observability.enable()
+        frames0 = dict(VM_GAUGES)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         observability.enable(False)
+        frames = {k: VM_GAUGES[k] - frames0[k] for k in frames0}
         spans = {k: v[1] for k, v in observability.SPAN_TOTALS.items()}
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -160,8 +180,12 @@ def main() -> int:
             pwall = time.perf_counter() - t0
         prof.export_chrome_trace(os.path.join(args.out, f"{name}.json"))
         line = {"workload": name, "wall_s": wall, "spans_s": spans,
+                "focus_s": {k: spans.get(k) for k in FOCUS_SPANS},
                 "profiled_wall_s": pwall, **device_profile(torch, prof, pwall),
-                **extra}
+                **frames, **extra}
+        if name in beside:
+            line["focus_s_beside"] = {k: beside[name].get(k)
+                                      for k in FOCUS_SPANS}
         if "blocks" in extra:
             for k in ("k1r", "k5", "k6"):
                 line[f"{k}_device_ms_per_block"] = (line[k]["device_ms"]

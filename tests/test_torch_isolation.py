@@ -253,12 +253,14 @@ def test_ragged_wrapper_checks_before_launch(call, match):
 
 
 def test_native_sources_include_nothing_of_the_reference():
-    """The copied C++ (and the CUDA sources) include only system headers
-    and headers beside them in the port."""
+    """The copied C++ and C (and the CUDA sources) include only system
+    headers and headers beside them in the port."""
     import re
 
-    srcs = sorted(build.PKG.glob("*/csrc/*.c*"))
+    srcs = sorted(build.PKG.glob("*/csrc/*.c*")) + sorted(
+        build.PKG.glob("*/csrc_ext/*.c"))
     assert {p.name for p in srcs} >= {"keccak.cc", "secp256k1.cc",
+                                      "evm.cc", "store.cc", "rlp_ext.c",
                                       "keccak.cu", "keccak_f1600.cuh"}
     for src in srcs:
         for inc in re.findall(r'#include\s*([<"][^>"]+[>"])', src.read_text()):

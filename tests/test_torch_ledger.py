@@ -288,24 +288,70 @@ def test_parallel_tx_raises_for_more_than_one_tx():
     assert result.stats.residue_txs + result.stats.fast_path_txs == 6
 
 
-@pytest.mark.parametrize("how", ["set_backend", "env"])
-def test_forced_native_vm_raises(how, monkeypatch):
+def _execute_block1(how, backend, monkeypatch):
+    """Block 1 of the execute fixture (the logger deploy), with the VM
+    backend forced by ``set_backend`` or by the environment; returns the
+    receipts' encodings and the frames each backend ran."""
     alloc, blocks, _ = _execute_fixture(0)
     cfg = dataclasses.replace(fixture_config(chain_id=1),
                               sync=SyncConfig(parallel_tx=False))
     bc = Blockchain(Storages(), cfg)
     bc.load_genesis(GenesisSpec(alloc=alloc))
     if how == "env":
-        monkeypatch.setenv("KHIPU_VM_BACKEND", "native")
+        monkeypatch.setenv("KHIPU_VM_BACKEND", backend)
     else:
-        dispatch.set_backend("native")
+        dispatch.set_backend(backend)
+    before = dict(dispatch.VM_GAUGES)
     try:
-        with pytest.raises(NotImplementedError, match="native VM"):
-            execute_block(pt_block.Block.decode(blocks[0].encode()),
-                          bc.get_header_by_number(0).state_root,
-                          bc.get_world_state, cfg)
+        result = execute_block(pt_block.Block.decode(blocks[0].encode()),
+                               bc.get_header_by_number(0).state_root,
+                               bc.get_world_state, cfg)
     finally:
         dispatch.set_backend(None)
+    frames = {k: dispatch.VM_GAUGES[k] - before[k] for k in before}
+    return [r.encode() for r in result.receipts], frames, blocks[0]
+
+
+@pytest.mark.parametrize("backend", ["native", "python"])
+@pytest.mark.parametrize("how", ["set_backend", "env"])
+def test_forced_backend_runs_it(how, backend, monkeypatch):
+    """A forced backend runs every frame (the frame counters say which);
+    both give the JAX-built block's receipts and the default backend's."""
+    receipts, frames, jx_block1 = _execute_block1(how, backend, monkeypatch)
+    other = "python" if backend == "native" else "native"
+    assert frames == {f"{backend}_frames": 1, f"{other}_frames": 0}
+    monkeypatch.delenv("KHIPU_VM_BACKEND", raising=False)
+    default, frames, _ = _execute_block1("set_backend", None, monkeypatch)
+    assert frames == {"native_frames": 1, "python_frames": 0}
+    assert receipts == default
+    assert default[0] == _execute_fixture(0)[2].blockchain.get_receipts(
+        1)[0].encode()
+
+
+def test_failed_native_build_raises_from_dispatch(tmp_path, monkeypatch):
+    """A g++ failure of the EVM core's build raises from the VM dispatch:
+    no frame runs on the Python VM in its place. The hashes and
+    signatures keep the library they loaded; the core's first load
+    rebuilds from a broken source."""
+    from khipu_tpu_torch.evm import native_vm
+
+    (tmp_path / "broken.cc").write_text("int khipu_broken( {\n")
+
+    def broken_build():
+        with monkeypatch.context() as m:
+            m.setattr(native_build, "CSRC", tmp_path)
+            m.setattr(native_build, "BUILD_DIR", tmp_path / "_build")
+            m.setattr(native_build, "_LIB", None)
+            return native_build.load_library()
+
+    monkeypatch.setattr(native_vm, "load_library", broken_build)
+    monkeypatch.setattr(native_vm, "_lib", None)
+    before = dict(dispatch.VM_GAUGES)
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed") as info:
+        _execute_block1("set_backend", None, monkeypatch)
+    assert any(e.name in ("run_message_call", "run_create")
+               for e in info.traceback)
+    assert dispatch.VM_GAUGES["python_frames"] == before["python_frames"]
 
 
 def test_explicit_hasher_commits_without_card(monkeypatch):
