@@ -148,12 +148,51 @@ header, body and receipt, the best block and an empty journal must
 match the memory engine's run, with 15's gates (mirror verify 0 among
 them) on the run itself.
 
+Then crash recovery, the chain switch and the seal check:
+
+ 20. ethash_block1: the epoch-0 Ethash cache at its spec size
+     (16,776,896 B, on the host, as in the JAX package), and mainnet
+     block 1 validated against the mainnet genesis header with
+     ``BlockHeaderValidator(seal_check=...)`` (``check_pow`` at the
+     epoch's dataset size); nonce + 1 and one flipped mix byte must be
+     refused
+ 21. recover_erc20_w8: 15's chain at window 8 with
+     ``degrade_on_collector_death=False``, once per seam of its path
+     (the five stage seams, ``collector.pack``, ``collector.spill``,
+     ``collector.commit``, ``fused.dispatch``, ``fused.collect``,
+     ``storage.node.put``, ``storage.block.put``), a ``die`` rule killing
+     the second window; a fresh driver's ``recover()`` then settles the
+     journal (nothing pending, best on a window's top at or below the
+     dead window's) and the replay resumes on the card from best + 1:
+     roots, receipts and reachable nodes equal 15's run, mirror verify
+     0, K5 = the resumed replay's device windows, 0 host windows. One
+     more run at the default degrade setting finishes with the same gates
+ 22. recover_durable: the same chain into ``Storages("native", tmp)``, a
+     ``die`` at ``collector.save`` in the second window, then ``stop()``,
+     a fresh ``Storages`` and ``Blockchain`` on the directory, recover
+     and resume: nodes, headers, bodies, receipts and best block equal
+     the memory run's, mirror verify 0
+ 23. reorg_erc20: 15's chain replayed windowed on the card, then a
+     ``ReorgManager`` switch to a heavier branch
+     (``workloads.erc20_fork_chain``: 200 transfers a block, shifted
+     amounts, another miner) at depth 2 (a 3-block branch, adopted block
+     by block: K1r) and depth 8 (a 12-block branch, adopted windowed:
+     K5 = its device windows); roots, receipts and reachable nodes equal
+     the host-built fork's, the orphaned-only transactions recycled into
+     the pool as in the port's CPU run of the same switch. The ancestor
+     lies inside a committed window, so the switch first rebuilds its
+     state. Then one kill at each of ``reorg.intent``,
+     ``reorg.rollback``, ``reorg.adopt`` and ``reorg.finalize`` on the
+     depth-8 switch, ``recover(config=...)``: each lands bit-exact on
+     exactly the old chain or exactly the new one
+
 After phases 9 and 10, K3 and K4 are held against their plain versions
 on every class of that phase's mirror, whole (the padded generic
 classes the paths gave them), with the negative controls in each class.
 
 Launch counts are zeroed just before each driven path (4-6, 8, 9, 10,
-and each genesis load and replay of 11-19) and read just after it. Every comparison is exact (bytes). Each phase
+each genesis load and replay of 11-19, and each killed run, resume,
+mirror verify and switch of 21-23) and read just after it. Every comparison is exact (bytes). Each phase
 prints one JSON line; the first line is the card's name and power limit from nvidia-smi, the line
 before the last lists the kernels, and the last line is the result. Any
 failure exits non-zero before the result line; without a card the
@@ -925,7 +964,28 @@ def k6_phase(args, torch, np, dev, rng) -> dict:
             "max_abs_err": err, "bound_by": "bytes"}
 
 
-def windowed_phases(args, torch, dev, launches, chains) -> dict:
+class _Sink:
+    def __init__(self):
+        self.nodes = {}
+
+    def update(self, removes, upserts):
+        self.nodes.update(upserts)
+
+
+def reachable(storages, root):
+    """verify_reachable's walk with hashes checked, keeping the nodes it
+    reaches: (report, (account, storage, code))."""
+    from khipu_tpu_torch.storage.compactor import compact
+
+    sinks = [_Sink() for _ in range(3)]
+    report = compact(storages.account_node_storage,
+                     storages.storage_node_storage,
+                     storages.evmcode_storage, root, *sinks,
+                     verify_hashes=True)
+    return report, tuple(s.nodes for s in sinks)
+
+
+def windowed_phases(args, torch, dev, launches, chains) -> tuple:
     """Phases 14-16: the windowed, pipelined replay on the card —
     ``ReplayDriver(..., device_commit=True)`` at ``commit_window_blocks``
     16 (the transfer chain) and 8 (the ERC-20 chain, and that chain over
@@ -941,20 +1001,12 @@ def windowed_phases(args, torch, dev, launches, chains) -> dict:
     from khipu_tpu_torch.ledger import batch_call, batch_exec
     from khipu_tpu_torch.ledger.schedule import EXEC_GAUGES, reset_learner
     from khipu_tpu_torch.ledger.window import WINDOW_GAUGES
-    from khipu_tpu_torch.storage.compactor import compact
     from khipu_tpu_torch.storage.device_mirror import MIRROR_GAUGES
     from khipu_tpu_torch.storage.storages import Storages
     from khipu_tpu_torch.sync import prefetch
     from khipu_tpu_torch.sync.adaptive import probe_backend
     from khipu_tpu_torch.sync.replay import PIPELINE_GAUGES, ReplayDriver
     from khipu_tpu_torch.trie import deferred, fused
-
-    class Sink:
-        def __init__(self):
-            self.nodes = {}
-
-        def update(self, removes, upserts):
-            self.nodes.update(upserts)
 
     def gauge_deltas(before):
         return {k: EXEC_GAUGES[k] - before[k] for k in EXEC_GAUGES
@@ -973,16 +1025,6 @@ def windowed_phases(args, torch, dev, launches, chains) -> dict:
                 "mispredictions": stats.mispredictions,
                 "fallbacks": gauges["fallbacks"],
                 "batches": gauges["batches"]}
-
-    def reachable(storages, root):
-        """verify_reachable's walk with hashes checked, keeping the nodes
-        it reaches: (report, (account, storage, code))."""
-        sinks = [Sink() for _ in range(3)]
-        report = compact(storages.account_node_storage,
-                         storages.storage_node_storage,
-                         storages.evmcode_storage, root, *sinks,
-                         verify_hashes=True)
-        return report, tuple(s.nodes for s in sinks)
 
     def cpu_reference(spec, blocks, window, cfg=None):
         """The port's windowed replay on the CPU (serial execution unless
@@ -1244,7 +1286,10 @@ def windowed_phases(args, torch, dev, launches, chains) -> dict:
         del reopened
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
-    del erc20_w8, mem, ref
+    # the uninterrupted windowed run the recovery phases are held to
+    w8 = {"spec": spec, "blocks": blocks, "mem": mem, "txs": erc20_txs,
+          "holders": holders}
+    del ref, erc20_w8
 
     # parallel and scheduled execution (the default parallel_tx and
     # scheduled_tx), beside the serial-execution lines above
@@ -1327,7 +1372,555 @@ def windowed_phases(args, torch, dev, launches, chains) -> dict:
           "from 200 senders, 20 % paying 4 hot recipients, the rest fresh "
           "addresses"})
     del ref
-    return k5_out
+    return k5_out, w8
+
+
+def ethash_phase() -> dict:
+    """ethash_block1: the epoch-0 Ethash cache at its spec size, then
+    mainnet block 1's header validated against the mainnet genesis
+    header with the seal check on (``check_pow`` at the epoch's dataset
+    size); nonce + 1 and one flipped mix byte must each be refused."""
+    from khipu_tpu_torch import workloads
+    from khipu_tpu_torch.base.keccak import keccak256
+    from khipu_tpu_torch.config import KhipuConfig
+    from khipu_tpu_torch.consensus import ethash
+    from khipu_tpu_torch.domain.blockchain import Blockchain
+    from khipu_tpu_torch.domain.difficulty import calc_difficulty
+    from khipu_tpu_torch.storage.storages import Storages
+    from khipu_tpu_torch.validators.validators import (
+        BlockHeaderValidator,
+        HeaderValidationError,
+    )
+
+    cfg = KhipuConfig()
+    header = workloads.MAINNET_BLOCK1
+    epoch = header.number // ethash.EPOCH_LENGTH
+    t0 = time.perf_counter()
+    cache = ethash.EthashCache(epoch)
+    cache_s = time.perf_counter() - t0
+    check(cache.n_rows * ethash.HASH_BYTES == ethash.cache_size(epoch)
+          == 16_776_896, f"epoch cache holds {cache.n_rows} rows")
+    full = ethash.dataset_size(epoch)
+    checks_ms = []
+
+    def seal_ok(h):
+        t = time.perf_counter()
+        ok = ethash.check_pow(cache, keccak256(h.encode_without_nonce()),
+                              h.mix_hash, int.from_bytes(h.nonce, "big"),
+                              h.difficulty, full)
+        checks_ms.append((time.perf_counter() - t) * 1e3)
+        return ok
+
+    genesis = Blockchain(Storages(), cfg).load_genesis(
+        workloads.mainnet_genesis_spec(os.path.join(
+            ROOT, "tests", "fixtures", "mainnet_genesis_alloc.txt.gz")))
+    check(genesis.hash == workloads.MAINNET_GENESIS_HASH,
+          "genesis hash != mainnet's")
+    validator = BlockHeaderValidator(
+        cfg.blockchain, seal_check=seal_ok,
+        difficulty_fn=lambda h, p: calc_difficulty(h.unix_timestamp, p,
+                                                   cfg.blockchain))
+    validator.validate(header, genesis.header)
+    nonce = int.from_bytes(header.nonce, "big")
+    tampered = {
+        "nonce_plus_1": dataclasses.replace(
+            header, nonce=(nonce + 1).to_bytes(8, "big")),
+        "mix_byte_flipped": dataclasses.replace(
+            header, mix_hash=bytes([header.mix_hash[0] ^ 1])
+            + header.mix_hash[1:]),
+    }
+    for what, bad in tampered.items():
+        try:
+            validator.validate(bad, genesis.header)
+        except HeaderValidationError:
+            continue
+        raise AssertionError(f"ethash_block1: a seal with {what} passed")
+    return {"phase": "ethash_block1", "epoch": epoch,
+            "cache_bytes": cache.n_rows * ethash.HASH_BYTES,
+            "dataset_bytes": full, "cache_build_seconds": cache_s,
+            "check_ms": checks_ms[0], "rejected_check_ms": checks_ms[1:],
+            "rejected": sorted(tampered), "nonce": header.nonce.hex(),
+            "block": header.number, "host_only": True}
+
+
+# hits of each seam in the first window of the ERC-20 chain at window 8
+# (a deploy block and 7 transfer blocks), so that ``after`` kills the
+# second window: one a window for the stage and fused seams, one a block
+# at collector.save (after 11: block 12 saved, 13-16 not), 3 node puts
+# in window 1 (account and storage spills, the token's code) and 4 block
+# puts a block (header, body, receipts, total difficulty: after 33 dies
+# on block 9's body)
+RECOVER_SEAMS = (("collector.seal", 1), ("collector.pack", 1),
+                 ("fused.dispatch", 1), ("fused.collect", 1),
+                 ("collector.collect", 1), ("collector.persist", 1),
+                 ("collector.spill", 1), ("collector.save", 11),
+                 ("collector.commit", 1), ("storage.node.put", 3),
+                 ("storage.block.put", 33))
+
+
+def recovery_phases(args, torch, dev, launches, w8, base) -> None:
+    """recover_erc20_w8, recover_durable and reorg_erc20: kills of the
+    windowed ERC-20 replay at every seam of its path, recovered by a
+    fresh driver and resumed on the card; the same into the native
+    engine, reopened; and journaled chain switches to a heavier branch,
+    per block and windowed, with a kill at each reorg seam."""
+    from khipu_tpu_torch import observability, workloads
+    from khipu_tpu_torch.chaos import (
+        FaultPlan,
+        FaultRule,
+        InjectedDeath,
+        InjectedFault,
+        active,
+        quiet_deaths,
+    )
+    from khipu_tpu_torch.domain.block import Block
+    from khipu_tpu_torch.domain.blockchain import Blockchain
+    from khipu_tpu_torch.ledger.window import WINDOW_GAUGES
+    from khipu_tpu_torch.storage.storages import Storages
+    from khipu_tpu_torch.sync import prefetch
+    from khipu_tpu_torch.sync.journal import recover
+    from khipu_tpu_torch.sync.reorg import ReorgManager
+    from khipu_tpu_torch.sync.replay import (
+        PIPELINE_GAUGES,
+        CollectorDied,
+        ReplayDriver,
+    )
+    from khipu_tpu_torch.txpool import PendingTransactionsPool
+
+    window = 8
+    spec, mem = w8["spec"], w8["mem"]
+    top = w8["blocks"][-1].number
+
+    def fresh(blocks):
+        """The blocks after a wire round trip, decoded anew for each run
+        (no sender memo carried over from an earlier run)."""
+        return [Block.decode(b.encode()) for b in blocks]
+
+    wire = fresh(w8["blocks"])
+
+    def config(**sync):
+        return workloads.replay_config(commit_window_blocks=window, **sync)
+
+    def load(name, storages, cfg):
+        bc = Blockchain(storages, cfg)
+        launches.zero()
+        bc.load_genesis(spec, on_device=True, device=dev)
+        torch.cuda.synchronize()
+        launches.read(f"{name} genesis", ("k1r",))
+        return bc
+
+    def driver(bc, cfg):
+        return ReplayDriver(bc, cfg, device_commit=True, device=dev)
+
+    def windowed(name, drv, blocks):
+        """Replay ``blocks`` windowed on the card: every window through
+        K5, none on the host, K1r only for sender batches."""
+        before = {k: WINDOW_GAUGES[k] for k in WINDOW_GAUGES}
+        batches0 = prefetch.PREFETCH_GAUGES["device_batches"]
+        prefetch.flush_sender_cache()
+        launches.zero()
+        t0 = time.perf_counter()
+        stats = drv.replay(blocks)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        path = launches.read(name, ("k5",) if blocks else ())
+        device_w = WINDOW_GAUGES["device_windows"] - before["device_windows"]
+        host_w = WINDOW_GAUGES["host_windows"] - before["host_windows"]
+        senders = prefetch.PREFETCH_GAUGES["device_batches"] - batches0
+        check(host_w == 0 and device_w == -(-len(blocks) // window),
+              f"{name}: {device_w} device and {host_w} host windows for "
+              f"{len(blocks)} blocks")
+        check(path["k5"] == device_w, f"{name}: K5 launched {path['k5']} "
+              f"times for {device_w} device windows")
+        check(path["k1r"] == senders, f"{name}: K1r launched {path['k1r']} "
+              f"times for {senders} sender batches")
+        return {"blocks": stats.blocks, "seconds": seconds,
+                "blocks_per_s": stats.blocks / seconds if seconds else 0.0,
+                "device_windows": device_w, "host_windows": host_w,
+                "launches": path}
+
+    def same_as_uninterrupted(name, bc, drv):
+        """Roots, receipts and reachable nodes equal the uninterrupted
+        windowed run's; nothing pending; the mirror verifies (K4)."""
+        check(bc.best_block_number == top, f"{name}: best block "
+              f"{bc.best_block_number}")
+        for b in wire:
+            got = bc.get_header_by_number(b.number)
+            check(got is not None and got.hash == b.hash,
+                  f"{name}: block {b.number}")
+            check(bc.storages.receipts_storage.get(b.number)
+                  == mem["chain"].storages.receipts_storage.get(b.number),
+                  f"{name}: block {b.number}'s receipts")
+        report, nodes = reachable(bc.storages, wire[-1].header.state_root)
+        check(report.missing == 0 and report.corrupt == 0
+              and nodes == mem["nodes"], f"{name}: reachable nodes != the "
+              f"uninterrupted run's ({report})")
+        check(bc.storages.window_journal.pending() == [],
+              f"{name}: journal intents pending")
+        launches.zero()
+        bad = drv._mirror.verify()
+        torch.cuda.synchronize()
+        launches.read(f"{name} mirror verify", ("k4",))
+        check(bad == 0, f"{name}: mirror verify found {bad}")
+
+    def kill(name, bc, cfg, site, after, kind="die"):
+        """The windowed replay with a ``kind`` fault at ``site``'s hit
+        after+1; returns the exception that stopped it (None: it
+        finished)."""
+        plan = FaultPlan(seed=args.seed, rules=[FaultRule(
+            site, kind, after=after, times=1)])
+        launches.zero()
+        raised = None
+        with active(plan), quiet_deaths():
+            try:
+                driver(bc, cfg).replay(fresh(wire))
+            except (CollectorDied, InjectedDeath, InjectedFault) as e:
+                raised = e
+        torch.cuda.synchronize()
+        path = launches.read(f"{name} killed", ())
+        check([s for (s, _, _, _) in plan.fired] == [site],
+              f"{name}: fired {plan.fired}")
+        return raised, path
+
+    def settle(name, bc, cfg):
+        t0 = time.perf_counter()
+        report = driver(bc, cfg).recover()
+        recover_s = time.perf_counter() - t0
+        best = bc.best_block_number
+        check(bc.storages.window_journal.pending() == [],
+              f"{name}: journal intents pending after recover")
+        check(best == report.best_after and best % window == 0
+              and best <= 2 * window, f"{name}: best block {best} after "
+              "recover is not a window's top at or below the dead window's")
+        return report, recover_s
+
+    # recover_erc20_w8: each seam kills the second window ---------------
+    cfg = config(degrade_on_collector_death=False)
+    lines = []
+    for site, after in RECOVER_SEAMS:
+        name = f"recover_erc20_w8 {site}"
+        bc = load(name, Storages(), cfg)
+        raised, killed_path = kill(name, bc, cfg, site, after)
+        check(isinstance(raised, CollectorDied), f"{name}: the replay "
+              f"was stopped by {raised!r}")
+        best_before = bc.storages.app_state.best_block_number
+        report, recover_s = settle(name, bc, cfg)
+        drv = driver(bc, cfg)
+        resumed = windowed(name, drv, fresh(wire[bc.best_block_number:]))
+        same_as_uninterrupted(name, bc, drv)
+        line = {"phase": "recover_erc20_w8", "seam": site, "after": after,
+                "stopped_by": type(raised).__name__,
+                "best_before": best_before, "best_after": report.best_after,
+                "scanned": report.scanned, "repaired": report.repaired,
+                "rolled_back": report.rolled_back,
+                "blocks_removed": report.blocks_removed,
+                "recover_seconds": recover_s,
+                "resume_blocks": resumed["blocks"],
+                "resume_seconds": resumed["seconds"],
+                "resume_blocks_per_s": resumed["blocks_per_s"],
+                "resume_device_windows": resumed["device_windows"],
+                "resume_host_windows": resumed["host_windows"],
+                "killed_run_launches": killed_path,
+                "launches": resumed["launches"]}
+        emit(line)
+        lines.append(line)
+        del bc, drv
+    # the default posture: a dead stage degrades the driver to
+    # synchronous commits (still on the card) and the replay finishes
+    name = "recover_erc20_w8 degrade"
+    cfg_degrade = config()
+    check(cfg_degrade.sync.degrade_on_collector_death, "degrade is off")
+    bc = load(name, Storages(), cfg_degrade)
+    deaths0 = PIPELINE_GAUGES["collector_deaths"]
+    fallback0 = PIPELINE_GAUGES["sync_fallback_windows"]
+    plan = FaultPlan(seed=args.seed, rules=[FaultRule(
+        "collector.collect", "die", after=1, times=1)])
+    drv = driver(bc, cfg_degrade)
+    with active(plan), quiet_deaths():
+        run = windowed(name, drv, fresh(wire))
+    check(PIPELINE_GAUGES["collector_deaths"] == deaths0 + 1
+          and run["blocks"] == top, f"{name}: {run['blocks']} blocks, "
+          f"{PIPELINE_GAUGES['collector_deaths'] - deaths0} deaths")
+    same_as_uninterrupted(name, bc, drv)
+    emit({"phase": "recover_erc20_w8", "seam": "collector.collect",
+          "after": 1, "degrade": True, **run,
+          "sync_fallback_windows": PIPELINE_GAUGES["sync_fallback_windows"]
+          - fallback0})
+    emit({"phase": "recover_erc20_w8", "seams": [ln["seam"] for ln in lines],
+          "degrade_run": True, "chain": f"a deploy and {top - 1} blocks of "
+          f"{w8['txs']} ERC-20 transfers, window 8"})
+    del bc, drv
+    # a device error at the second window's dispatch, at the default
+    # degrade setting: the replay stops with the fault and hashes no
+    # window on the host; recover settles the torn window and a fresh
+    # driver resumes on the card
+    name = "recover_erc20_w8 fused.dispatch raise"
+    bc = load(name, Storages(), cfg_degrade)
+    host0 = WINDOW_GAUGES["host_windows"]
+    raised, killed_path = kill(name, bc, cfg_degrade, "fused.dispatch", 1,
+                               kind="raise")
+    check(isinstance(raised, InjectedFault), f"{name}: the replay was "
+          f"stopped by {raised!r}")
+    check(WINDOW_GAUGES["host_windows"] == host0, f"{name}: "
+          f"{WINDOW_GAUGES['host_windows'] - host0} windows on the host")
+    pending = len(bc.storages.window_journal.pending())
+    check(pending > 0, f"{name}: no intent pending after the fault")
+    best_before = bc.storages.app_state.best_block_number
+    report, recover_s = settle(name, bc, cfg_degrade)
+    check(report.rolled_back >= 1, f"{name}: rolled back "
+          f"{report.rolled_back} windows")
+    drv = driver(bc, cfg_degrade)
+    resumed = windowed(name, drv, fresh(wire[bc.best_block_number:]))
+    same_as_uninterrupted(name, bc, drv)
+    emit({"phase": "recover_erc20_w8", "seam": "fused.dispatch",
+          "kind": "raise", "after": 1, "degrade": True,
+          "stopped_by": type(raised).__name__, "pending": pending,
+          "best_before": best_before, "best_after": report.best_after,
+          "scanned": report.scanned, "repaired": report.repaired,
+          "rolled_back": report.rolled_back, "recover_seconds": recover_s,
+          "resume_blocks": resumed["blocks"],
+          "resume_blocks_per_s": resumed["blocks_per_s"],
+          "resume_device_windows": resumed["device_windows"],
+          "resume_host_windows": resumed["host_windows"],
+          "killed_run_launches": killed_path,
+          "launches": resumed["launches"]})
+    del bc, drv
+
+    # recover_durable: the same kill into the native engine, reopened ---
+    name = "recover_durable"
+    data_dir = tempfile.mkdtemp(prefix="khipu_recover_")
+    try:
+        storages = Storages("native", data_dir)
+        bc = load(name, storages, cfg)
+        raised, _ = kill(name, bc, cfg, "collector.save", 11)
+        check(isinstance(raised, CollectorDied), f"{name}: {raised!r}")
+        best_before = bc.storages.app_state.best_block_number
+        storages.stop()
+        del bc, storages
+        t0 = time.perf_counter()
+        bc = Blockchain(Storages("native", data_dir), cfg)
+        reopen_s = time.perf_counter() - t0
+        report, recover_s = settle(name, bc, cfg)
+        drv = driver(bc, cfg)
+        resumed = windowed(name, drv, fresh(wire[bc.best_block_number:]))
+        same_as_uninterrupted(name, bc, drv)
+        for i in range(top + 1):
+            for store in ("block_header_storage", "block_body_storage",
+                          "receipts_storage"):
+                check(getattr(bc.storages, store).get(i) == getattr(
+                    mem["chain"].storages, store).get(i),
+                    f"{name}: block {i}'s {store} != the memory run's")
+        bc.storages.stop()
+        data_bytes = sum(os.path.getsize(os.path.join(data_dir, f))
+                         for f in os.listdir(data_dir))
+        emit({"phase": name, "engine": "native", "seam": "collector.save",
+              "after": 11, "best_before": best_before,
+              "best_after": report.best_after, "scanned": report.scanned,
+              "repaired": report.repaired,
+              "rolled_back": report.rolled_back,
+              "reopen_seconds": reopen_s, "recover_seconds": recover_s,
+              "resume_blocks": resumed["blocks"],
+              "resume_blocks_per_s": resumed["blocks_per_s"],
+              "data_bytes": data_bytes, "launches": resumed["launches"]})
+        del bc, drv
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+    # reorg_erc20: switches to a heavier branch -------------------------
+    check([b.hash for b in base] == [b.hash for b in wire],
+          "the recovery chain is not replay_erc20's")
+    cfg = config()
+    old_tip = (top, wire[-1].hash, wire[-1].header.state_root)
+    for depth, branch in ((2, 3), (8, 12)):
+        ancestor = top - depth
+        name = f"reorg_erc20 depth {depth}"
+        t0 = time.perf_counter()
+        fork_builder, _, fork = workloads.erc20_fork_chain(
+            workloads.replay_config(), ancestor, branch, w8["txs"],
+            w8["holders"])
+        build_s = time.perf_counter() - t0
+        fork = fresh(fork)
+        new_top = fork[-1].number
+        new_tip = (new_top, fork[-1].hash, fork[-1].header.state_root)
+        fork_nodes = reachable(fork_builder.blockchain.storages,
+                               fork[-1].header.state_root)[1]
+        # the port's CPU run of the same switch: the recycled count
+        t0 = time.perf_counter()
+        cpu_bc = Blockchain(Storages(), cfg)
+        cpu_bc.load_genesis(spec)
+        ReplayDriver(cpu_bc, workloads.replay_config(),
+                     device="cpu").replay(fresh(wire))
+        cpu_pool = PendingTransactionsPool()
+        cpu_mgr = ReorgManager(cpu_bc, cfg, txpool=cpu_pool, driver=ReplayDriver(
+            cpu_bc, cfg, device_commit=True, device="cpu"))
+        cpu_mgr.switch(ancestor, fresh(fork[ancestor:]))
+        cpu_s = time.perf_counter() - t0
+        check(tip_of(cpu_bc) == new_tip, f"{name}: the CPU switch's tip")
+        # on the card
+        bc = load(name, Storages(), cfg)
+        drv = driver(bc, cfg)
+        windowed(f"{name} base", drv, fresh(wire))
+        pool = PendingTransactionsPool()
+        mgr = ReorgManager(bc, cfg, driver=drv, txpool=pool)
+        before = {k: WINDOW_GAUGES[k] for k in WINDOW_GAUGES}
+        batches0 = prefetch.PREFETCH_GAUGES["device_batches"]
+        observability.SPAN_TOTALS.clear()
+        observability.enable()
+        launches.zero()
+        t0 = time.perf_counter()
+        adopted = mgr.switch(ancestor, fresh(fork[ancestor:]))
+        torch.cuda.synchronize()
+        switch_s = time.perf_counter() - t0
+        observability.enable(False)
+        spans = {k: v[1] for k, v in observability.SPAN_TOTALS.items()
+                 if k.startswith("reorg.")}
+        windowed_adopt = branch >= window
+        path = launches.read(name, ("k5",) if windowed_adopt else ("k1r",))
+        device_w = WINDOW_GAUGES["device_windows"] - before["device_windows"]
+        host_w = WINDOW_GAUGES["host_windows"] - before["host_windows"]
+        check(adopted == branch and tip_of(bc) == new_tip,
+              f"{name}: landed at {tip_of(bc)[0]}")
+        check(host_w == 0 and path["k5"] == device_w
+              == (-(-branch // window) if windowed_adopt else 0),
+              f"{name}: K5 {path['k5']}, {device_w} device and {host_w} "
+              "host windows")
+        # every block executed serially (the rebuilt ancestor state, and
+        # a short branch's adoption) commits at least one level on K1r
+        senders = prefetch.PREFETCH_GAUGES["device_batches"] - batches0
+        flush = path["k1r"] - senders
+        serial_blocks = mgr.regenerated_blocks + (0 if windowed_adopt
+                                                  else branch)
+        check(flush >= serial_blocks, f"{name}: K1r launched {path['k1r']} "
+              f"({senders} sender batches) for {serial_blocks} serial blocks")
+        for b in fork:
+            got = bc.get_header_by_number(b.number)
+            check(got is not None and got.hash == b.hash,
+                  f"{name}: block {b.number} != the fork's")
+            check(bc.storages.receipts_storage.get(b.number)
+                  == fork_builder.blockchain.storages.receipts_storage.get(
+                      b.number), f"{name}: block {b.number}'s receipts")
+        report, nodes = reachable(bc.storages, new_tip[2])
+        check(report.missing == 0 and report.corrupt == 0
+              and nodes == fork_nodes, f"{name}: reachable nodes != the "
+              "host-built fork's")
+        check(mgr.recycled_txs == cpu_mgr.recycled_txs > 0
+              and [t.hash for t in pool.pending()]
+              == [t.hash for t in cpu_pool.pending()],
+              f"{name}: recycled {mgr.recycled_txs}, the CPU run "
+              f"{cpu_mgr.recycled_txs}")
+        check(bc.storages.window_journal.pending() == [],
+              f"{name}: journal intents pending")
+        launches.zero()
+        bad = drv._mirror.verify()
+        torch.cuda.synchronize()
+        launches.read(f"{name} mirror verify", ("k4",))
+        check(bad == 0, f"{name}: mirror verify found {bad}")
+        emit({"phase": "reorg_erc20", "depth": depth, "ancestor": ancestor,
+              "adopted": branch, "adoption": "windowed (K5)"
+              if windowed_adopt else "block by block (K1r)",
+              "switch_seconds": switch_s,
+              "rollback_seconds": spans.get("reorg.rollback"),
+              "adopt_seconds": spans.get("reorg.adopt"),
+              "regenerated_blocks": mgr.regenerated_blocks,
+              "regenerate_seconds": spans.get("reorg.regenerate"),
+              "orphaned_blocks": mgr.orphaned_blocks,
+              "recycled_txs": mgr.recycled_txs,
+              "cpu_recycled_txs": cpu_mgr.recycled_txs,
+              "pool_size": len(pool), "device_windows": device_w,
+              "host_windows": host_w, "k1r_flush_launches": flush,
+              "k1r_sender_launches": senders, "launches": path,
+              "fork_build_seconds": build_s, "cpu_switch_seconds": cpu_s})
+        del bc, drv, mgr, cpu_bc, cpu_mgr
+    # a kill at each reorg seam of the depth-8 switch, then recover: the
+    # node lands on exactly the old chain or exactly the new one, with no
+    # block record above its tip, and a roll-forward re-executes the
+    # staged branch through K1r on the card
+    fork_receipts = fork_builder.blockchain.storages.receipts_storage
+    for site, after in (("reorg.intent", 0), ("reorg.rollback", 2),
+                        ("reorg.adopt", 0), ("reorg.finalize", 0)):
+        name = f"reorg_erc20 {site}"
+        bc = load(name, Storages(), cfg)
+        drv = driver(bc, cfg)
+        windowed(f"{name} base", drv, fresh(wire))
+        mgr = ReorgManager(bc, cfg, driver=drv,
+                           txpool=PendingTransactionsPool())
+        plan = FaultPlan(seed=args.seed, rules=[FaultRule(
+            site, "die", after=after, times=1)])
+        host0 = WINDOW_GAUGES["host_windows"]
+        launches.zero()
+        died = False
+        with active(plan):
+            try:
+                mgr.switch(ancestor, fresh(fork[ancestor:]))
+            except InjectedDeath:
+                died = True
+        torch.cuda.synchronize()
+        killed_path = launches.read(f"{name} killed", ())
+        check(died and [s for (s, _, _, _) in plan.fired] == [site],
+              f"{name}: fired {plan.fired}")
+        batches0 = prefetch.PREFETCH_GAUGES["device_batches"]
+        launches.zero()
+        t0 = time.perf_counter()
+        report = recover(bc, config=cfg, device=dev)
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t0
+        rolled_forward = any("rolled forward" in a for a in report.actions)
+        path = launches.read(name, ("k1r",) if rolled_forward else ())
+        senders = prefetch.PREFETCH_GAUGES["device_batches"] - batches0
+        flush = path["k1r"] - senders
+        host_w = WINDOW_GAUGES["host_windows"] - host0
+        check(host_w == 0, f"{name}: {host_w} windows on the host")
+        check(path["k5"] == 0, f"{name}: recover launched K5")
+        if rolled_forward:
+            check(flush >= branch, f"{name}: K1r launched {path['k1r']} "
+                  f"times ({senders} sender batches) to re-execute "
+                  f"{branch} blocks")
+        else:
+            check(path["k1r"] == 0, f"{name}: recover launched K1r "
+                  f"{path['k1r']} times without re-executing a block")
+        landed = tip_of(bc)
+        check(landed in (old_tip, new_tip), f"{name}: landed on neither "
+              f"chain ({landed[0]})")
+        check(not rolled_forward or landed == new_tip,
+              f"{name}: rolled forward to {landed[0]}")
+        for n in range(landed[0] + 1, max(top, new_top) + 2):
+            check(bc.get_header_by_number(n) is None
+                  and bc.storages.block_body_storage.get(n) is None
+                  and bc.storages.receipts_storage.get(n) is None,
+                  f"{name}: a block record above the landed tip at #{n}")
+        if landed == old_tip:
+            same_as_uninterrupted(name, bc, drv)
+        else:
+            for b in fork:
+                got = bc.get_header_by_number(b.number)
+                check(got is not None and got.hash == b.hash,
+                      f"{name}: block {b.number} != the fork's")
+                check(bc.storages.receipts_storage.get(b.number)
+                      == fork_receipts.get(b.number),
+                      f"{name}: block {b.number}'s receipts")
+            walk, nodes = reachable(bc.storages, new_tip[2])
+            check(walk.missing == 0 and walk.corrupt == 0
+                  and nodes == fork_nodes, f"{name}: reachable nodes != "
+                  f"the host-built fork's ({walk})")
+            check(bc.storages.window_journal.pending() == [],
+                  f"{name}: journal intents pending")
+        emit({"phase": "reorg_erc20", "depth": 8, "seam": site,
+              "after": after, "landed": "old" if landed == old_tip
+              else "new", "best": landed[0],
+              "rolled_forward": rolled_forward,
+              "reorgs_completed": report.reorgs_completed,
+              "reorgs_abandoned": report.reorgs_abandoned,
+              "blocks_removed": report.blocks_removed,
+              "recover_seconds": recover_s, "host_windows": host_w,
+              "k1r_flush_launches": flush, "k1r_sender_launches": senders,
+              "killed_run_launches": killed_path, "launches": path})
+        del bc, drv, mgr
+
+
+def tip_of(bc):
+    best = bc.best_block_number
+    h = bc.get_header_by_number(best)
+    return best, h.hash, h.state_root
 
 
 def main() -> int:
@@ -2007,8 +2600,12 @@ def main() -> int:
     replay_err, chains = replay_phases(args, torch, dev, launches, packed,
                                        hold_ragged)
     k1r_err = max(k1r_err, replay_err)
-    k5_replay = windowed_phases(args, torch, dev, launches, chains)
+    k5_replay, w8 = windowed_phases(args, torch, dev, launches, chains)
     k5_err = max(k5_err, max(w["max_abs_err"] for w in k5_replay.values()))
+    emit(ethash_phase())
+    recovery_phases(args, torch, dev, launches, w8,
+                    chains["replay_erc20"][2])
+    del w8, chains
 
     tot = launches.total
     k1r_main = batch100["100x1+4"]
@@ -2020,7 +2617,9 @@ def main() -> int:
          "launches": tot["k1r"], "max_abs_err": k1r_err,
          "launches_note": "fast sync's content checks, each replay's "
          "genesis load and sender batches, the serial replays' trie "
-         "commits (the windowed replays' commits launch K5 instead)",
+         "commits, the per-block adoption's and the rebuilt ancestor "
+         "states' commits (the windowed replays' commits launch K5 "
+         "instead)",
          "shape": "100 rows, 1 and 4 rate blocks mixed, column mode",
          "ms": k1r_main["column_kernel_us"] / 1e3,
          "plain_ms": k1r_main["plain_us"] / 1e3,
@@ -2037,7 +2636,8 @@ def main() -> int:
          "replaces": "khipu_tpu/trie/fused.py:193",
          "launches": tot["k5"], "max_abs_err": k5_err,
          "launches_note": "state root 3, window_admit 1, one a device "
-         "window of each windowed replay",
+         "window of each windowed replay, killed run, resume and "
+         "windowed adoption",
          "shape": "window_16x400",
          "ms": k5_window["k5_ms"], "plain_ms": k5_window["plain_ms"],
          "bound_ms": k5_window["bound_ms"], "bound_by": k5_window["bound_by"],

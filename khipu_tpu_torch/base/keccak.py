@@ -2,9 +2,11 @@
 
 ``keccak256`` hashes one message on the host through the native C++
 sponge (``khipu_tpu_torch/native/csrc/keccak.cc``, built with g++ at the
-first hash; a failed build raises). ``keccak256_py`` is the pure-Python
-sponge, about half a millisecond a hash on one CPU core: the oracle the
-native and batched paths are tested against. Batches go through
+first hash; a failed build raises), and ``keccak512`` (rate 72, Ethash's
+cache and dataset items) through the same sponge. ``keccak256_py`` and
+``keccak512_py`` are the pure-Python sponge, about half a millisecond a
+hash on one CPU core: the oracles the native and batched paths are
+tested against. Batches go through
 ``khipu_tpu_torch.ops.keccak`` — the plain PyTorch sponge on the CPU,
 the hand-written CUDA kernel on the card.
 """
@@ -102,7 +104,13 @@ def keccak256_py(data: bytes) -> bytes:
     return _keccak(bytes(data), 136, 32)
 
 
+def keccak512_py(data: bytes) -> bytes:
+    """Pure-Python keccak-512 (rate 72)."""
+    return _keccak(bytes(data), 72, 64)
+
+
 _native_keccak256 = None
+_native_keccak512 = None
 
 
 def keccak256(data: bytes) -> bytes:
@@ -113,3 +121,14 @@ def keccak256(data: bytes) -> bytes:
 
         _native_keccak256 = native
     return _native_keccak256(data)
+
+
+def keccak512(data: bytes) -> bytes:
+    """keccak-512 (rate 72) of one message, through the native sponge;
+    Ethash's cache and dataset items use it."""
+    global _native_keccak512
+    if _native_keccak512 is None:
+        from khipu_tpu_torch.native.keccak import keccak512 as native
+
+        _native_keccak512 = native
+    return _native_keccak512(data)

@@ -1,11 +1,12 @@
 """Configuration tree — one dataclass hierarchy for the whole node.
 
 The port's copy of ``khipu_tpu.config``, every default the same, cut to
-the fields the port reads: the chain's fork schedule and the replay's
+the fields the port reads: the chain's fork schedule, the replay's
 sync knobs (serial, optimistic and scheduled execution, the execute
 stage's device validation, the windowed commit pipeline, the commit
-journal and the adaptive controller). A section or field comes back
-with the module that reads it.
+journal and the adaptive controller) and the reorg depth limit
+(``DbConfig.unconfirmed_depth``). A section or field comes back with the
+module that reads it.
 
 Parity: config/KhipuConfig.scala:20-120 (nested Network/Sync/Db accessor
 objects over HOCON) and BlockchainConfig :185 (fork block numbers,
@@ -88,6 +89,16 @@ class BlockchainConfig:
     bomb_defuse_block: int = FAR
     monetary_policy: MonetaryPolicy = field(default_factory=MonetaryPolicy)
     max_code_size: int = 24_576  # EIP-170
+
+
+@dataclass(frozen=True)
+class DbConfig:
+    """Storage settings (DbConfig.scala:5-19), cut to what the port
+    reads: the unconfirmed ring's depth, beyond which sync/reorg.py
+    refuses a chain switch. The engine, directory and cache size are
+    ``Storages``' arguments."""
+
+    unconfirmed_depth: int = 20  # block-resolving-depth reorg ring
 
 
 @dataclass(frozen=True)
@@ -185,6 +196,7 @@ class SyncConfig:
 @dataclass(frozen=True)
 class KhipuConfig:
     blockchain: BlockchainConfig = field(default_factory=BlockchainConfig)
+    db: DbConfig = field(default_factory=DbConfig)
     sync: SyncConfig = field(default_factory=SyncConfig)
 
 

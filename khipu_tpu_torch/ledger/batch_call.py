@@ -37,12 +37,17 @@ re-runs the whole block on the optimistic path — correctness never
 depends on the template being right, and the header oracle
 (_validate_after) backstops the whole lane by demoting every trusted
 template used in a block whose root comes out wrong.
+
+``fault_point("ledger.batch")`` fires per row in the scatter loop,
+same as the transfer batch: a mid-batch crash leaves only a
+memory-only world that dies with the driver.
 """
 
 from __future__ import annotations
 
 from typing import List, Sequence, Tuple
 
+from khipu_tpu_torch.chaos.plan import fault_point
 from khipu_tpu_torch.ledger.batch_exec import (
     check_tx_scalars,
     gather_validate_rows,
@@ -123,6 +128,7 @@ def execute_call_batch(
     results: List[TxResult] = []
     for (index, stx, sender, _ch, _tpl), (gas_used, writes) in zip(
             items, staged):
+        fault_point("ledger.batch")
         tx = stx.tx
         fee = gas_used * tx.gas_price
         world.increase_nonce(sender)

@@ -31,6 +31,11 @@ precondition (code appeared at ``to`` mid-block via an internal
 CREATE, out-of-range field) raises schedule.Misprediction — in both
 cases the caller discards the scheduled attempt and re-runs the whole
 block on the optimistic path, which owns the authoritative error.
+
+``fault_point("ledger.batch")`` fires per row inside the scatter loop
+so chaos tests can kill the process mid-batch: the half-scattered
+world is memory-only and dies with the driver; recovery re-executes
+the block from the journal serially, bit-exact.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 
 from khipu_tpu_torch.base.secp256k1 import HALF_N
+from khipu_tpu_torch.chaos.plan import fault_point
 from khipu_tpu_torch.domain.account import EMPTY_CODE_HASH
 from khipu_tpu_torch.ledger.schedule import Misprediction
 
@@ -182,6 +188,7 @@ def execute_fast_batch(
     # effect: nonce+1, sender -(value + gas*price), recipient +value)
     results: List[TxResult] = []
     for index, stx, sender in items:
+        fault_point("ledger.batch")
         tx = stx.tx
         fee = intrinsic * tx.gas_price
         world.increase_nonce(sender)

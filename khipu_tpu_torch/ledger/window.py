@@ -37,6 +37,7 @@ from typing import Dict, List, Optional, Set, Tuple
 import torch
 
 from khipu_tpu_torch.base.keccak import keccak256
+from khipu_tpu_torch.chaos import fault_point
 from khipu_tpu_torch.device import resolve_device
 from khipu_tpu_torch.domain.account import address_key
 from khipu_tpu_torch.domain.block_header import BlockHeader
@@ -324,6 +325,10 @@ class WindowCommitter:
                 if enc is not None:  # None: another session's counter
                     to_resolve[ph] = enc
         job.to_resolve = to_resolve
+        # chaos seam: a die between the pack scan and the dispatch — the
+        # resumed stage re-runs pack_and_dispatch from the top (memory-
+        # only mutations so far; the re-pack is deterministic)
+        fault_point("collector.pack")
         adaptive = self.adaptive
         use_device = bool(
             self.fused and to_resolve
@@ -641,6 +646,11 @@ class WindowCommitter:
                     account_nodes[real] = enc
             t_store = time.perf_counter()
             self.storages.account_node_storage.update([], account_nodes)
+            # chaos seam: a ``die`` here kills the spill between the two
+            # node stores — the torn window must roll back bit-exact
+            # through journal.recover() (host state has the account half
+            # only; the mirror is volatile and detached there)
+            fault_point("collector.spill")
             self.storages.storage_node_storage.update([], storage_nodes)
             self.persist_bytes += sum(len(e) for e in subbed) + 32 * len(
                 live_phs)

@@ -8,11 +8,18 @@ from typing import List, Sequence
 from khipu_tpu_torch.native.build import load_library
 
 _RATE_256 = 136
+_RATE_512 = 72
 
 
 def keccak256(data: bytes) -> bytes:
     out = ctypes.create_string_buffer(32)
     load_library().khipu_keccak(_RATE_256, bytes(data), len(data), out, 32)
+    return out.raw
+
+
+def keccak512(data: bytes) -> bytes:
+    out = ctypes.create_string_buffer(64)
+    load_library().khipu_keccak(_RATE_512, bytes(data), len(data), out, 64)
     return out.raw
 
 

@@ -9,10 +9,16 @@ movement ledger). This module is what those call sites need:
   (``[count, seconds]`` over every span since the last clear), under a
   lock: the replay driver and its sender-prefetch thread both time
   ``keccak.*`` spans.
+* ``event(name, **tags)`` — a point event (a fired fault, a pipeline
+  degrade, a scenario step): ``EVENT_COUNTS[name]`` counts it, always
+  on; the tags are not kept (the full trace is ROADMAP A8).
 * ``REGISTRY.gauge_group(name, defaults)`` — a get-or-create dict of
   counters; ``REGISTRY.inc(group, key)`` raises one under the
-  registry's lock. The port's registry is its own object, so nothing
-  here can reset or share a gauge of the JAX package.
+  registry's lock. ``REGISTRY.register_collector(name, fn)`` keeps one
+  pull collector per name (a later one replaces it); ``collect()``
+  returns every collector's ``(name, kind, labels, value)`` samples.
+  The port's registry is its own object, so nothing here can reset or
+  share a gauge of the JAX package.
 * ``compile_log`` — build and shape-cache events (hit / miss with
   seconds), written by ``ops/build.py`` and ``native/build.py``.
 """
@@ -23,11 +29,12 @@ import threading
 import time
 from collections import deque
 from contextlib import contextmanager
-from typing import Deque, Dict, Optional, Tuple
+from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 _ENABLED = [False]
 SPAN_TOTALS: Dict[str, list] = {}
 _SPAN_LOCK = threading.Lock()
+EVENT_COUNTS: Dict[str, int] = {}
 
 
 def enable(on: bool = True) -> None:
@@ -50,10 +57,32 @@ def span(name: str):
             total[1] += dt
 
 
+def event(name: str, **tags) -> None:
+    """Count one point event by name (the tags are dropped)."""
+    with _SPAN_LOCK:
+        EVENT_COUNTS[name] = EVENT_COUNTS.get(name, 0) + 1
+
+
 class _Registry:
     def __init__(self) -> None:
         self._groups: Dict[str, Dict[str, float]] = {}
+        self._collectors: Dict[str, Callable[[], list]] = {}
         self._lock = threading.Lock()
+
+    def register_collector(self, name: str, fn: Callable[[], list]) -> None:
+        """Keep ``fn`` as the pull collector ``name`` (replacing any
+        earlier one of that name)."""
+        with self._lock:
+            self._collectors[name] = fn
+
+    def collect(self) -> List[tuple]:
+        """Every registered collector's samples, in name order."""
+        with self._lock:
+            fns = [self._collectors[k] for k in sorted(self._collectors)]
+        out: List[tuple] = []
+        for fn in fns:
+            out.extend(fn())
+        return out
 
     def gauge_group(self, name: str, defaults: Dict[str, float],
                     help: str = "") -> Dict[str, float]:

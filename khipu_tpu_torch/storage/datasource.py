@@ -4,8 +4,9 @@ The port's counterpart of ``khipu_tpu.storage.datasource`` (parity:
 khipu-storage/.../datasource/DataSource.scala:6, NodeDataSource.scala:5,
 KeyValueDataSource.scala:3; EphemNodeDataSource is the model for the
 Memory* engines; BlockDataSource.scala:3 for the block stores). The
-chaos plane's ``fault_point`` hooks are not carried: the port has no
-chaos plane.
+memory engines' reads and writes are chaos seams (``storage.kv.*``,
+``storage.node.*``, ``storage.block.*``): one global load and an
+``is None`` test each while no fault plan is installed.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import threading
 from typing import Dict, Iterable, List, Mapping, Optional
 
+from khipu_tpu_torch.chaos import fault_point
 from khipu_tpu_torch.storage.cache import Clock
 
 
@@ -83,12 +85,17 @@ class BlockDataSource(DataSource):
 
 
 class MemoryKeyValueDataSource(KeyValueDataSource):
+    # the chaos seams of a read and of a write
+    _get_seam = "storage.kv.get"
+    _put_seam = "storage.kv.put"
+
     def __init__(self) -> None:
         super().__init__()
         self._map: Dict[bytes, bytes] = {}
         self._lock = threading.Lock()
 
     def get(self, key: bytes) -> Optional[bytes]:
+        fault_point(self._get_seam)
         t0 = self.clock.start()
         try:
             return self._map.get(bytes(key))
@@ -98,6 +105,7 @@ class MemoryKeyValueDataSource(KeyValueDataSource):
     def update(
         self, to_remove: Iterable[bytes], to_upsert: Mapping[bytes, bytes]
     ) -> None:
+        fault_point(self._put_seam)
         with self._lock:
             for k in to_remove:
                 self._map.pop(bytes(k), None)
@@ -116,6 +124,9 @@ class MemoryNodeDataSource(MemoryKeyValueDataSource, NodeDataSource):
     """In-memory content-addressed node store (EphemNodeDataSource):
     the store ``MerklePatriciaTrie`` reads and persists into."""
 
+    _get_seam = "storage.node.get"
+    _put_seam = "storage.node.put"
+
 
 class MemoryBlockDataSource(BlockDataSource):
     def __init__(self) -> None:
@@ -125,6 +136,7 @@ class MemoryBlockDataSource(BlockDataSource):
         self._lock = threading.Lock()
 
     def get(self, number: int) -> Optional[bytes]:
+        fault_point("storage.block.get")
         t0 = self.clock.start()
         try:
             return self._map.get(int(number))
@@ -132,6 +144,7 @@ class MemoryBlockDataSource(BlockDataSource):
             self.clock.elapse(t0)
 
     def update(self, to_remove, to_upsert) -> None:
+        fault_point("storage.block.put")
         with self._lock:
             for n in to_remove:
                 self._map.pop(int(n), None)

@@ -499,6 +499,12 @@ class DeviceNodeMirror:
                 moved += cm.rekey(mapping)
         return moved
 
+    def alias_keys(self) -> List[bytes]:
+        """Every placeholder still keying a row (windows admitted but not
+        yet rekeyed)."""
+        return [k for cm in list(self._classes.values())
+                for k in list(cm.alias_rows)]
+
     def drop_aliases(self, aliases) -> None:
         """Forget un-published alias rows (torn/abandoned window)."""
         for cm in list(self._classes.values()):

@@ -14,7 +14,7 @@ not ported yet (ROADMAP A7).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 from khipu_tpu_torch.storage.app_state import AppStateStorage
 from khipu_tpu_torch.storage.block_storage import (
@@ -127,6 +127,13 @@ class Storages:
         recovery check must see host-durable state only)."""
         self.account_node_storage.mirror = None
         self.storage_node_storage.mirror = None
+
+    def storage_repair_report(self) -> List[str]:
+        """Open-time storage-layer repairs, as report lines for journal
+        recovery to surface. The memory, native and sqlite engines
+        perform none on open (the kesque engine's torn-tail scan-back
+        comes with it, ROADMAP A7)."""
+        return []
 
     def get_node_any(self, h: bytes):
         """One node/code lookup across the three content-addressed

@@ -16,9 +16,13 @@ trie level on the card) and checked against the header's state root. At
 (ledger/window.py), the window resolves in one K5 launch on the card,
 and background stage threads check its roots, admit its live nodes into
 the device mirror, spill them to the host stores and save its blocks,
-while the driver executes the next window. The chaos ``fault_point``
-hooks, the transaction passport (``JOURNEY``), the movement ledger, the
-tracer and the serving read view are not ported yet (ROADMAP).
+while the driver executes the next window. Each stage boundary is a
+chaos seam (``collector.seal``, ``collector.collect``,
+``collector.persist``, ``collector.save``, ``collector.commit``): a
+``die`` there stops the stage thread as a process death would, and
+``recover`` settles what it left. The transaction passport
+(``JOURNEY``), the movement ledger, the tracer and the serving read view
+are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from typing import Callable, Iterable, Iterator, List, Optional
 
 import torch
 
+from khipu_tpu_torch.chaos import InjectedDeath, fault_point
 from khipu_tpu_torch.config import KhipuConfig
 from khipu_tpu_torch.device import resolve_device
 from khipu_tpu_torch.domain.block import Block
@@ -43,7 +48,7 @@ from khipu_tpu_torch.domain.difficulty import calc_difficulty
 from khipu_tpu_torch.evm.config import for_block
 from khipu_tpu_torch.ledger.ledger import execute_block
 from khipu_tpu_torch.ledger.window import WindowCommitter
-from khipu_tpu_torch.observability import REGISTRY, span
+from khipu_tpu_torch.observability import REGISTRY, event, span
 from khipu_tpu_torch.sync.prefetch import (
     SenderPrefetcher,
     recover_block_senders,
@@ -202,6 +207,9 @@ class _WindowCollector:
         self.stage_busy: List[float] = [0.0] * k
         self._failure: Optional[BaseException] = None
         self._closed = False
+        # set by take_pending: each live worker finishes (and hands on)
+        # the job in hand, then exits without taking another
+        self._halt = False
         self._inflight = 0  # jobs submitted but not fully completed
         self._threads = [
             threading.Thread(
@@ -284,11 +292,30 @@ class _WindowCollector:
 
     def take_pending(self) -> List[Callable[[], None]]:
         """After CollectorDied: every unfinished job in FIFO order —
-        deepest stage first (those windows are oldest), each stage's
+        deepest stage first (those windows are oldest), the dead stage's
         torn current job ahead of its queue (jobs are idempotent: node
         puts are content-addressed, block saves overwrite by number,
-        stats apply only at job end). Marks the collector closed; the
-        caller runs these synchronously."""
+        stats apply only at job end). The live workers first finish the
+        job in hand and hand it on, then stop (joined within
+        ``join_timeout``): a job a live stage is running is never
+        returned to be run a second time beside it. Marks the collector
+        closed; the caller runs these synchronously."""
+        with self._cv:
+            self._closed = True
+            self._halt = True
+            self._cv.notify_all()
+        deadline = time.monotonic() + self.join_timeout
+        for t in self._threads:
+            t.join(timeout=max(0.0, deadline - time.monotonic()))
+        if any(t.is_alive() for t in self._threads):
+            raise RuntimeError(
+                "window-collector failed to stop within "
+                f"{self.join_timeout:.0f}s after a stage died — a wedged "
+                "job is still holding the pipeline"
+            )
+        if self._failure is not None:
+            # a live stage failed while finishing its job: fail-stop
+            raise self._failure
         with self._cv:
             out: List[Callable[[], None]] = []
             for i in range(len(self.STAGES) - 1, -1, -1):
@@ -298,7 +325,6 @@ class _WindowCollector:
                 entries.extend(self._qs[i])
                 self._qs[i].clear()
                 out.extend(self._resume(fns, i) for fns in entries)
-            self._closed = True
             self._inflight = 0
             self._update_gauges()
             self._cv.notify_all()
@@ -371,11 +397,11 @@ class _WindowCollector:
         q = self._qs[i]
         while True:
             with self._cv:
-                while (not q and self._failure is None
+                while (not q and self._failure is None and not self._halt
                        and not self._exit_ready(i)):
                     # timed: an upstream death is silent (no notify)
                     self._cv.wait(timeout=0.5)
-                if self._failure is not None or (
+                if self._failure is not None or self._halt or (
                     not q and self._exit_ready(i)
                 ):
                     self._done[i] = True
@@ -388,8 +414,15 @@ class _WindowCollector:
             t0 = time.perf_counter()
             try:
                 fns[i]()
-            # recorded and re-raised on the driver by submit()/drain():
-            # fail-stop, not swallowed
+            except InjectedDeath:
+                # simulated process death (chaos ``die``): no failure
+                # record, no notify — the thread just stops with the job
+                # half done, as under SIGKILL. The driver's liveness
+                # checks raise CollectorDied; _current stays set so
+                # take_pending can re-run the torn job.
+                return
+            # anything else is recorded and re-raised on the driver by
+            # submit()/drain(): fail-stop, not swallowed
             except BaseException as exc:  # noqa: BLE001
                 with self._cv:
                     self._failure = exc
@@ -474,6 +507,17 @@ class ReplayDriver:
         self._mirror = None
         # the last windowed replay's adaptive controller (None when off)
         self.adaptive = None
+
+    def recover(self):
+        """Crash-recovery startup pass (sync/journal.py): settle every
+        pending window-commit intent — repair complete windows, roll
+        back partial ones, complete or abandon torn chain switches (a
+        torn switch re-executes on this driver's device). Returns a
+        RecoveryReport."""
+        from khipu_tpu_torch.sync.journal import recover
+
+        return recover(self.blockchain, log=self.log, config=self.config,
+                       device=self.device)
 
     def replay(self, blocks: Iterable[Block]) -> ReplayStats:
         """executeAndInsertBlocks: serial fold with full validation, or
@@ -569,6 +613,13 @@ class ReplayDriver:
                 mirror = self._mirror = DeviceNodeMirror(
                     sync.mirror_capacity_rows, device=dev
                 )
+            else:
+                # a replay that died left the alias rows of windows that
+                # never published; this replay's session restarts the
+                # placeholder counter, so a stale alias would be rekeyed
+                # under a new window's real hash. Completed replays leave
+                # none (every window rekeyed its aliases at persist)
+                mirror.drop_aliases(mirror.alias_keys())
             self.blockchain.storages.attach_mirror(mirror)
 
         # ONE controller per replay: it outlives epoch committer
@@ -619,6 +670,7 @@ class ReplayDriver:
             nonlocal sync_degraded
             sync_degraded = True
             PIPELINE_GAUGES["collector_deaths"] += 1
+            event("pipeline.degrade", reason="collector-died")
             if self.log is not None:
                 self.log(
                     "window-collector thread died; degrading to "
@@ -688,7 +740,9 @@ class ReplayDriver:
                 # pack scan + dispatch build + upload + K5 launch, while
                 # the driver executes the next window; the journal intent
                 # was written before this job existed and pack mutates
-                # memory only
+                # memory only. A rule at any collector.* seam models a
+                # failure or death at that phase of the job
+                fault_point("collector.seal")
                 with on_device():
                     t0 = time.perf_counter()
                     with span("window.pack"):
@@ -696,6 +750,7 @@ class ReplayDriver:
                     ph["seal_bg"] += time.perf_counter() - t0
 
             def collect_fn():
+                fault_point("collector.collect")
                 with on_device():
                     t0 = time.perf_counter()
                     with span("window.collect"):
@@ -707,6 +762,7 @@ class ReplayDriver:
                     ph["collect_bg"] += time.perf_counter() - t0
 
             def persist_fn():
+                fault_point("collector.persist")
                 with on_device():
                     t0 = time.perf_counter()
                     with span("window.persist"):
@@ -728,12 +784,14 @@ class ReplayDriver:
                         self.blockchain.save_block(
                             block, result.receipts, td, world=None
                         )
+                        fault_point("collector.save")
                         n_blocks += 1
                         txs += result.stats.tx_count
                         gas += result.gas_used
                     # the commit mark is the job's LAST mutation: a
                     # window is durable only after persist + save
                     if intent_seq is not None:
+                        fault_point("collector.commit")
                         journal.log_commit(intent_seq)
                     if self.log is not None:
                         self.log(

@@ -41,6 +41,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from khipu_tpu_torch.chaos import fault_point
 from khipu_tpu_torch.device import resolve_device
 from khipu_tpu_torch.observability import REGISTRY, span as _span
 from khipu_tpu_torch.ops import keccak_torch
@@ -397,6 +398,7 @@ class FusedJob:
             return self._mapping
         if self._host is None:
             return {}
+        fault_point("fused.collect")
         with _span("fused.collect"):
             if self._event is not None:
                 self._event.synchronize()
@@ -516,6 +518,10 @@ def fused_submit(
     (``FusedJob.admit_tiles``).
     """
     dev = resolve_device(device)
+    # chaos seam: a ``raise`` here models a runtime dispatch failure,
+    # which stops the windowed replay (the port hashes no window on the
+    # host after a device error; the JAX package degrades that window)
+    fault_point("fused.dispatch")
     with _span("fused.dispatch"):
         return _fused_submit(
             to_resolve, prefix, dev, depth, ext, admit_live

@@ -17,7 +17,8 @@ drive the same data:
   ``transfer_chain`` (value transfers), ``contended_transfer_chain``
   (a share of each block's transfers paying a few hot recipients),
   ``erc20_chain`` (a deploy block, then token ``transfer(to, amount)``
-  calls) and ``mixed_contract_chain`` (counter calls beside
+  calls), ``erc20_fork_chain`` (a heavier branch of it, for chain
+  switches) and ``mixed_contract_chain`` (counter calls beside
   transfers). ``replay_config`` and ``prebyzantium_config`` give their
   configurations.
 
@@ -446,6 +447,39 @@ def erc20_chain(cfg, n_blocks: int, txs_per_block: int, holders: int,
     (address -> balance) adds accounts to the genesis, which gives the
     account trie a realistic depth (``bulk_alloc``). Returns
     ``(builder, genesis spec, blocks)``."""
+    return _erc20_blocks(cfg, n_blocks, txs_per_block, holders, extra_alloc)
+
+
+# the heavier branch of erc20_fork_chain: another miner, and every
+# transfer's amount shifted, so each of its transactions differs from the
+# base chain's at the same sender and nonce
+FORK_COINBASE = b"\xbb" * 20
+FORK_AMOUNT_SHIFT = 1_000_000
+
+
+def erc20_fork_chain(cfg, ancestor: int, fork_blocks: int,
+                     txs_per_block: int, holders: int, extra_alloc=None):
+    """A branch off ``erc20_chain(cfg, n, txs_per_block, holders)`` for
+    a chain switch: that chain's deploy block and transfer blocks
+    through block ``ancestor`` (the same blocks, hash for hash), then
+    ``fork_blocks`` blocks of the same senders' next transfers with
+    every amount shifted by ``FORK_AMOUNT_SHIFT``, mined by
+    ``FORK_COINBASE``. With ``fork_blocks`` greater than the base
+    chain's blocks above ``ancestor`` it is longer, so its total
+    difficulty is heavier, and every base transaction above the ancestor
+    is mined on the losing branch only (an orphan to recycle). Returns
+    ``(builder, genesis spec, blocks)``, blocks 1 ..
+    ``ancestor + fork_blocks``."""
+    if ancestor < 1:
+        raise ValueError("the branch forks after the deploy block")
+    return _erc20_blocks(cfg, ancestor - 1 + fork_blocks, txs_per_block,
+                         holders, extra_alloc, diverge_at=ancestor - 1)
+
+
+def _erc20_blocks(cfg, n_blocks, txs_per_block, holders, extra_alloc,
+                  diverge_at=None):
+    """``erc20_chain``'s blocks; transfer blocks from index
+    ``diverge_at`` on are the fork's (shifted amounts, FORK_COINBASE)."""
     from khipu_tpu_torch.domain.transaction import (
         Transaction,
         contract_address,
@@ -465,14 +499,17 @@ def erc20_chain(cfg, n_blocks: int, txs_per_block: int, holders: int,
                                 coinbase=COINBASE)]
     nonces = [1] + [0] * (txs_per_block - 1)
     for n in range(n_blocks):
+        forked = diverge_at is not None and n >= diverge_at
         txs = []
         for j in range(txs_per_block):
             rcpt = holder_addrs[(j + n * 7) % holders]
-            amount = 1_000 + 13 * j + n
+            amount = 1_000 + 13 * j + n + (FORK_AMOUNT_SHIFT if forked
+                                           else 0)
             payload = rcpt.rjust(32, b"\x00") + amount.to_bytes(32, "big")
             tx = Transaction(nonces[j], 10**9, 100_000, token, 0,
                              payload=payload)
             txs.append(sign_transaction(tx, keys[j], chain_id=1))
             nonces[j] += 1
-        blocks.append(builder.add_block(txs, coinbase=COINBASE))
+        blocks.append(builder.add_block(
+            txs, coinbase=FORK_COINBASE if forked else COINBASE))
     return builder, spec, blocks

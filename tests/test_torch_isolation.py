@@ -1,4 +1,5 @@
-"""The port stands alone: importing every khipu_tpu_torch module loads
+"""The port stands alone: importing every khipu_tpu_torch module (the
+consensus, chaos, reorg, pool and miner modules among them) loads
 neither JAX nor the khipu_tpu reference package, and an entry point that
 is asked for the card where there is none raises instead of running on
 the CPU."""
@@ -30,6 +31,7 @@ from khipu_tpu_torch.sync.fast_sync import FastSyncStateStorage, StateSyncer
 from khipu_tpu_torch.sync import adaptive
 from khipu_tpu_torch.sync.adaptive import AdaptiveCommitController, probe_backend
 from khipu_tpu_torch.sync.prefetch import recover_block_senders
+from khipu_tpu_torch.sync.reorg import ReorgManager
 from khipu_tpu_torch.sync.replay import ReplayDriver
 from khipu_tpu_torch.trie import bulk, deferred, fixpoint_cuda, fused
 from khipu_tpu_torch.trie.mpt import EMPTY_TRIE_HASH, MerklePatriciaTrie
@@ -48,7 +50,12 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "khipu_tpu" or m.startswith("khipu_tpu."))
-print(len(names), bad)
+want = {"khipu_tpu_torch.consensus", "khipu_tpu_torch.consensus.ethash",
+        "khipu_tpu_torch.chaos", "khipu_tpu_torch.chaos.plan",
+        "khipu_tpu_torch.chaos.scenario", "khipu_tpu_torch.chaos.invariants",
+        "khipu_tpu_torch.sync.reorg", "khipu_tpu_torch.txpool",
+        "khipu_tpu_torch.mining"}
+print(len(names), sorted(want - set(names)) + bad)
 """
 
 
@@ -125,13 +132,14 @@ def _session():
     lambda: probe_backend(),
     lambda: fused.fused_exec_validate([0], [0], [1], [1]),
     lambda: adaptive.exec_device_allowed(SyncConfig(exec_device=True)),
+    lambda: ReorgManager(_chain(), workloads.replay_config()),
 ], ids=["batch", "batch-cuda", "fixed", "device_hasher", "bulk_fused",
         "bulk_levels", "finalize_fused", "finalize_levels", "commit",
         "batch_commit", "fused_submit", "device_fixed", "device_fixed_words",
         "mirror", "state_syncer", "replay_driver", "replay_device_commit",
         "genesis_on_device", "sender_batch_hash", "replay_windowed",
         "window_committer_fused", "adaptive_controller", "adaptive_probe",
-        "exec_validate", "exec_device_allowed"])
+        "exec_validate", "exec_device_allowed", "reorg_manager"])
 def test_entry_points_raise_without_card(no_card, call):
     with pytest.raises(RuntimeError, match="is_available"):
         call()
