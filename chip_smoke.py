@@ -186,13 +186,45 @@ Then crash recovery, the chain switch and the seal check:
      depth-8 switch, ``recover(config=...)``: each lands bit-exact on
      exactly the old chain or exactly the new one
 
+Then the Kesque segment engine (the log-structured store) under the
+windowed replay:
+
+ 24. replay_erc20_w8_kesque: 15's chain at window 8 into
+     ``Storages("kesque", <tmpdir>)`` with 15's gates (roots, receipts
+     and reachable nodes equal the memory run's, K5 = windows, 0 host
+     windows, mirror verify 0); the persist stage's bytes/s beside the
+     memory and native engines' of the same process, bytes on disk,
+     segments, the read amplification of 10,000 seeded point reads; then
+     stopped and reopened twice, with its sidecar indexes (a fast open,
+     nothing repaired) and with every ``.kidx`` deleted (every index
+     rebuilt from its segments), each reading back byte-equal
+ 25. recover_kesque: the same chain killed in its second window at
+     ``kesque.append`` (the persist stage's account spill, a frame torn
+     mid-write), ``kesque.roll`` (at 16 KiB segments, so that a window
+     rolls) and ``kesque.index`` (a checkpoint once window 1 is saved);
+     the files closed unflushed, reopened in a new ``Storages``,
+     recovered (a ``storage:`` line for every torn tail) and resumed on
+     the card: roots, receipts and nodes equal the uninterrupted run's
+ 26. compact_kesque: 24's store compacted to its head root while four
+     reader threads read every reachable node: every read equal, bytes
+     reclaimed, the state complete after compaction and after a reopen;
+     a ``kesque.compact`` raise first leaves the store readable
+ 27. segment_ingest_100k: phase 9's snapshot (139,802 nodes) appended
+     into a kesque source at 128 KiB segments and streamed by
+     ``segment_snapshot_ingest`` (4 workers, 1 MiB chunks, the
+     hash-verified walk from its root) into a fresh kesque store:
+     records = nodes, nothing corrupt or missing; a chunk with one
+     flipped byte lands no record; the admission hash timed on one
+     thread and on four
+
 After phases 9 and 10, K3 and K4 are held against their plain versions
 on every class of that phase's mirror, whole (the padded generic
 classes the paths gave them), with the negative controls in each class.
 
 Launch counts are zeroed just before each driven path (4-6, 8, 9, 10,
-each genesis load and replay of 11-19, and each killed run, resume,
-mirror verify and switch of 21-23) and read just after it. Every comparison is exact (bytes). Each phase
+each genesis load and replay of 11-19 and 24, and each killed run,
+resume, mirror verify and switch of 21-23 and 25) and read just after
+it; 26 and 27 run on the host and launch nothing. Every comparison is exact (bytes). Each phase
 prints one JSON line; the first line is the card's name and power limit from nvidia-smi, the line
 before the last lists the kernels, and the last line is the result. Any
 failure exits non-zero before the result line; without a card the
@@ -214,6 +246,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
+from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GENESIS_ROOT = "d7f8974fb5ac78d9ac099b9ad5018bedc2ce0a72dad1827a1709da30580f0544"
@@ -1286,9 +1319,16 @@ def windowed_phases(args, torch, dev, launches, chains) -> tuple:
         del reopened
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
-    # the uninterrupted windowed run the recovery phases are held to
+    # the uninterrupted windowed run the recovery and kesque phases are
+    # held to; ``card_run`` replays it again into another engine there
     w8 = {"spec": spec, "blocks": blocks, "mem": mem, "txs": erc20_txs,
-          "holders": holders}
+          "holders": holders, "builder": builder, "ref": ref,
+          "card_run": card_run,
+          "persist_bytes_per_s": {
+              "memory": lines[name]["persist_bytes_per_s"],
+              "native": run["persist_bytes_per_s"]},
+          "blocks_per_s": {"memory": lines[name]["blocks_per_s"],
+                           "native": run["blocks_per_s"]}}
     del ref, erc20_w8
 
     # parallel and scheduled execution (the default parallel_tx and
@@ -1458,13 +1498,13 @@ RECOVER_SEAMS = (("collector.seal", 1), ("collector.pack", 1),
                  ("storage.block.put", 33))
 
 
-def recovery_phases(args, torch, dev, launches, w8, base) -> None:
-    """recover_erc20_w8, recover_durable and reorg_erc20: kills of the
-    windowed ERC-20 replay at every seam of its path, recovered by a
-    fresh driver and resumed on the card; the same into the native
-    engine, reopened; and journaled chain switches to a heavier branch,
-    per block and windowed, with a kill at each reorg seam."""
-    from khipu_tpu_torch import observability, workloads
+def recovery_helpers(args, torch, dev, launches, w8):
+    """The windowed ERC-20 chain's runs and gates on the card, shared by
+    the recovery and kesque phases: its wire blocks decoded anew for each
+    run, its config, a genesis load, a driver, a gated windowed replay, a
+    seam kill, a gated ``recover`` and the check against the
+    uninterrupted run."""
+    from khipu_tpu_torch import workloads
     from khipu_tpu_torch.chaos import (
         FaultPlan,
         FaultRule,
@@ -1476,16 +1516,8 @@ def recovery_phases(args, torch, dev, launches, w8, base) -> None:
     from khipu_tpu_torch.domain.block import Block
     from khipu_tpu_torch.domain.blockchain import Blockchain
     from khipu_tpu_torch.ledger.window import WINDOW_GAUGES
-    from khipu_tpu_torch.storage.storages import Storages
     from khipu_tpu_torch.sync import prefetch
-    from khipu_tpu_torch.sync.journal import recover
-    from khipu_tpu_torch.sync.reorg import ReorgManager
-    from khipu_tpu_torch.sync.replay import (
-        PIPELINE_GAUGES,
-        CollectorDied,
-        ReplayDriver,
-    )
-    from khipu_tpu_torch.txpool import PendingTransactionsPool
+    from khipu_tpu_torch.sync.replay import CollectorDied, ReplayDriver
 
     window = 8
     spec, mem = w8["spec"], w8["mem"]
@@ -1593,6 +1625,46 @@ def recovery_phases(args, torch, dev, launches, w8, base) -> None:
               and best <= 2 * window, f"{name}: best block {best} after "
               "recover is not a window's top at or below the dead window's")
         return report, recover_s
+
+    return SimpleNamespace(window=window, top=top, wire=wire, fresh=fresh,
+                           config=config, load=load, driver=driver,
+                           windowed=windowed, kill=kill, settle=settle,
+                           same_as_uninterrupted=same_as_uninterrupted)
+
+
+def recovery_phases(args, torch, dev, launches, w8, rec, base) -> None:
+    """recover_erc20_w8, recover_durable and reorg_erc20: kills of the
+    windowed ERC-20 replay at every seam of its path, recovered by a
+    fresh driver and resumed on the card; the same into the native
+    engine, reopened; and journaled chain switches to a heavier branch,
+    per block and windowed, with a kill at each reorg seam."""
+    from khipu_tpu_torch import observability, workloads
+    from khipu_tpu_torch.chaos import (
+        FaultPlan,
+        FaultRule,
+        InjectedDeath,
+        InjectedFault,
+        active,
+        quiet_deaths,
+    )
+    from khipu_tpu_torch.domain.blockchain import Blockchain
+    from khipu_tpu_torch.ledger.window import WINDOW_GAUGES
+    from khipu_tpu_torch.storage.storages import Storages
+    from khipu_tpu_torch.sync import prefetch
+    from khipu_tpu_torch.sync.journal import recover
+    from khipu_tpu_torch.sync.reorg import ReorgManager
+    from khipu_tpu_torch.sync.replay import (
+        PIPELINE_GAUGES,
+        CollectorDied,
+        ReplayDriver,
+    )
+    from khipu_tpu_torch.txpool import PendingTransactionsPool
+
+    window, spec, mem, top = rec.window, w8["spec"], w8["mem"], rec.top
+    wire, fresh, config, load = rec.wire, rec.fresh, rec.config, rec.load
+    driver, windowed, kill, settle = (rec.driver, rec.windowed, rec.kill,
+                                      rec.settle)
+    same_as_uninterrupted = rec.same_as_uninterrupted
 
     # recover_erc20_w8: each seam kills the second window ---------------
     cfg = config(degrade_on_collector_death=False)
@@ -1915,6 +1987,437 @@ def recovery_phases(args, torch, dev, launches, w8, base) -> None:
               "k1r_flush_launches": flush, "k1r_sender_launches": senders,
               "killed_run_launches": killed_path, "launches": path})
         del bc, drv, mgr
+
+
+# The kesque kills of recover_kesque: (seam, hits before the death, the
+# thread whose hits count, segment bytes or None for the default). At
+# window 8 on the ERC-20 chain the persist stage appends window 1's
+# account spill in 9 chunks of 4 KiB, its storage spill in 13 and its
+# code in 1: its 28th hit is window 2's account spill, 5 chunks in (a
+# frame torn mid-write). At 16 KiB segments its rolls in window 1 are 7,
+# so the 8th is window 2's first. The index death is in the checkpoint
+# the block source runs once window 1 is saved, at its 6th sidecar.
+KESQUE_KILLS = (("kesque.append", 27, "window-persist", None),
+                ("kesque.roll", 7, "window-persist", 16 << 10),
+                ("kesque.index", 5, None, None))
+
+
+def kesque_phases(args, torch, dev, launches, w8, rec, fs100k) -> None:
+    """replay_erc20_w8_kesque, recover_kesque, compact_kesque and
+    segment_ingest_100k: the windowed ERC-20 replay into
+    ``Storages("kesque", tmp)`` on the card, read back after a fast open
+    and after a full index rebuild; the same replay killed at each kesque
+    seam, reopened from its files, recovered and resumed; the replayed
+    store compacted under four reader threads; and the 100k fast-sync
+    snapshot streamed segment by segment into a fresh kesque store."""
+    import glob
+
+    import numpy as np
+
+    from khipu_tpu_torch import observability
+    from khipu_tpu_torch.base.keccak import keccak256
+    from khipu_tpu_torch.chaos import (
+        FaultPlan,
+        FaultRule,
+        InjectedDeath,
+        InjectedFault,
+        active,
+        quiet_deaths,
+    )
+    from khipu_tpu_torch.domain.blockchain import Blockchain
+    from khipu_tpu_torch.native.keccak import keccak256_batch
+    from khipu_tpu_torch.storage import kesque, segment
+    from khipu_tpu_torch.storage.compactor import verify_reachable
+    from khipu_tpu_torch.storage.storages import Storages
+    from khipu_tpu_torch.sync.fast_sync import segment_snapshot_ingest
+    from khipu_tpu_torch.sync.replay import CollectorDied
+
+    spec, blocks, mem = w8["spec"], w8["blocks"], w8["mem"]
+    top, head = blocks[-1].number, blocks[-1].header
+    cfg = rec.config()
+    reachable_nodes = [(i, k, v) for i, nodes in enumerate(mem["nodes"])
+                       for k, v in nodes.items()]
+
+    def node_sources(storages):
+        return [getattr(storages, s).source for s in NODE_STORES]
+
+    def small_segments(storages, nbytes):
+        for store in storages.kesque_engine._stores.values():
+            store.segment_bytes = nbytes
+
+    def disk_bytes(d):
+        return sum(os.path.getsize(p) for p in glob.glob(
+            os.path.join(d, "kesque", "*", "*")))
+
+    def read_back(name, bc):
+        """The reopened store serves the memory run's chain: reachable
+        nodes, every header, body and receipt, the best block, and no
+        journal intent pending."""
+        report, nodes = reachable(bc.storages, head.state_root)
+        check(report.missing == 0 and report.corrupt == 0
+              and nodes == mem["nodes"], f"{name}: reachable nodes != the "
+              f"memory engine's ({report})")
+        for i in range(top + 1):
+            for store in ("block_header_storage", "block_body_storage",
+                          "receipts_storage"):
+                got = getattr(bc.storages, store).get(i)
+                check((got is not None or i == 0) and got == getattr(
+                    mem["chain"].storages, store).get(i),
+                    f"{name}: block {i}'s {store}")
+        check(bc.best_block_number == top, f"{name}: best block "
+              f"{bc.best_block_number}")
+        check(bc.storages.window_journal.pending() == [],
+              f"{name}: journal intents pending")
+
+    class OnThread(FaultPlan):
+        """A plan that counts and fires its seams on one thread's hits
+        only (``thread`` None: every thread's): four stage threads append
+        at once, and only one of them has a hit count fixed by the data."""
+
+        def __init__(self, thread, **kw):
+            super().__init__(**kw)
+            self.thread = thread
+
+        def fire(self, site, value=None):
+            if (self.thread is not None
+                    and threading.current_thread().name != self.thread):
+                return value
+            return super().fire(site, value)
+
+    def reopen(name, d, seg_bytes=None):
+        t0 = time.perf_counter()
+        storages = Storages("kesque", d)
+        bc = Blockchain(storages, cfg)
+        seconds = time.perf_counter() - t0
+        if seg_bytes:
+            small_segments(storages, seg_bytes)
+        return bc, seconds
+
+    tmp = tempfile.mkdtemp(prefix="khipu_kesque_")
+    try:
+        # replay_erc20_w8_kesque --------------------------------------
+        name = "replay_erc20_w8_kesque"
+        d = os.path.join(tmp, "replay")
+        kept = {}
+        run = w8["card_run"](name, spec, blocks, 8, w8["builder"].blockchain,
+                             w8["ref"], nodes=mem["nodes"],
+                             storages=lambda: Storages("kesque", d),
+                             keep=kept)
+        storages = kept["chain"].storages
+        engine = storages.kesque_engine
+        sources = node_sources(storages)
+        rng = np.random.default_rng([args.seed, 10])
+        picks = rng.integers(0, len(reachable_nodes), 10_000)
+        stores = list(engine._stores.values())
+        disk0 = sum(st.disk_read_bytes for st in stores)
+        served0 = sum(st.value_bytes_returned for st in stores)
+        t0 = time.perf_counter()
+        for i in picks:
+            src, key, value = reachable_nodes[int(i)]
+            check(sources[src].get(key) == value,
+                  f"{name}: a point read != the memory engine's node")
+        reads_s = time.perf_counter() - t0
+        read_amp = ((sum(st.disk_read_bytes for st in stores) - disk0)
+                    / (sum(st.value_bytes_returned for st in stores)
+                       - served0))
+        segments = sum(len(rows) for rows in engine.segment_stats().values())
+        on_disk = disk_bytes(d)
+        storages.stop()
+        del kept, storages, engine, sources, stores
+        bc, fast_s = reopen(f"{name} reopen", d)
+        check(not any(st.rebuilt_index or st.torn_bytes for st in
+                      bc.storages.kesque_engine._stores.values())
+              and bc.storages.storage_repair_report() == [],
+              f"{name}: the reopen with sidecars repaired or rebuilt")
+        read_back(f"{name} reopen", bc)
+        bc.storages.stop()
+        sidecars = glob.glob(os.path.join(d, "kesque", "*", "*.kidx"))
+        check(len(sidecars) == len(kesque.NODE_TOPICS) + 8,
+              f"{name}: {len(sidecars)} sidecars after stop")
+        for path in sidecars:
+            os.unlink(path)
+        bc, rebuild_s = reopen(f"{name} rebuild", d)
+        rebuilt = bc.storages.kesque_engine._stores.values()
+        check(all(st.rebuilt_index for st in rebuilt),
+              f"{name}: a store opened without its sidecar was not rebuilt")
+        read_back(f"{name} rebuild", bc)
+        rebuilt_records = sum(st.count for st in rebuilt)
+        emit({"phase": name, "window": 8, "engine": "kesque", **run,
+              "persist_bytes_per_s_by_engine": {
+                  "kesque": run["persist_bytes_per_s"],
+                  **w8["persist_bytes_per_s"]},
+              "blocks_per_s_by_engine": {"kesque": run["blocks_per_s"],
+                                         **w8["blocks_per_s"]},
+              "disk_bytes": on_disk, "segments": segments,
+              "segment_bytes": kesque.DEFAULT_SEGMENT_BYTES,
+              "point_reads": len(picks), "point_read_seconds": reads_s,
+              "read_amplification": read_amp,
+              "reopen_sidecar_seconds": fast_s,
+              "reopen_rebuild_seconds": rebuild_s,
+              "rebuilt_records": rebuilt_records,
+              "repair_lines": len(bc.storages.storage_repair_report())})
+        replayed, replayed_dir = bc, d
+
+        # recover_kesque ------------------------------------------------
+        cfg_kill = rec.config(degrade_on_collector_death=False)
+        for site, after, thread, seg_bytes in KESQUE_KILLS:
+            name = f"recover_kesque {site}"
+            d = os.path.join(tmp, site)
+            storages = Storages("kesque", d)
+            bc = rec.load(name, storages, cfg_kill)
+            if seg_bytes:
+                small_segments(storages, seg_bytes)
+            plan = OnThread(thread, seed=args.seed, rules=[FaultRule(
+                site, "die", after=after, times=1)])
+
+            def source():
+                """The wire blocks; for the index seam, a checkpoint of
+                every sidecar once window 1 is saved (bounded wait), run
+                by the thread that pulls the blocks."""
+                yield from rec.fresh(rec.wire[:12])
+                if site == "kesque.index":
+                    deadline = time.monotonic() + 120
+                    while storages.app_state.best_block_number < 8:
+                        check(time.monotonic() < deadline,
+                              f"{name}: window 1 was not saved in time")
+                        time.sleep(0.005)
+                    storages.kesque_engine.checkpoint()
+                yield from rec.fresh(rec.wire[12:])
+
+            launches.zero()
+            raised = None
+            with active(plan), quiet_deaths():
+                try:
+                    rec.driver(bc, cfg_kill).replay(source())
+                except (CollectorDied, InjectedDeath) as e:
+                    raised = e
+            torch.cuda.synchronize()
+            killed_path = launches.read(f"{name} killed", ())
+            check(raised is not None and [f[0] for f in plan.fired] == [site],
+                  f"{name}: fired {plan.fired}, stopped by {raised!r}")
+            best_before = storages.app_state.best_block_number
+            # process death: the files are closed unflushed, no sidecar
+            # is written
+            for store in storages.kesque_engine._stores.values():
+                for seg in store._segments.values():
+                    seg.close()
+            del bc, storages
+            bc, reopen_s = reopen(name, d, seg_bytes)
+            engine = bc.storages.kesque_engine
+            torn = {t: st.torn_bytes for t, st in engine._stores.items()
+                    if st.torn_bytes}
+            rebuilt = sorted(t for t, st in engine._stores.items()
+                             if st.rebuilt_index)
+            report, recover_s = rec.settle(name, bc, cfg_kill)
+            lines = [a for a in report.actions if a.startswith("storage: ")]
+            for topic, nbytes in torn.items():
+                check(f"storage: kesque[{topic}]: torn segment tail "
+                      f"truncated ({nbytes} bytes scanned back)" in lines,
+                      f"{name}: no storage: line for {topic}'s torn tail")
+            check(site != "kesque.append" or torn.get("account", 0) > 0,
+                  f"{name}: the account spill was not torn mid-frame")
+            drv = rec.driver(bc, cfg)
+            resumed = rec.windowed(name, drv,
+                                   rec.fresh(rec.wire[bc.best_block_number:]))
+            rec.same_as_uninterrupted(name, bc, drv)
+            bc.storages.stop()
+            line = {"phase": "recover_kesque", "seam": site, "after": after,
+                    "thread": thread or "any",
+                    "stopped_by": type(raised).__name__,
+                    "best_before": best_before,
+                    "best_after": report.best_after,
+                    "scanned": report.scanned, "repaired": report.repaired,
+                    "rolled_back": report.rolled_back,
+                    "torn_bytes": sum(torn.values()), "torn_topics": torn,
+                    "rebuilt_topics": rebuilt, "storage_lines": len(lines),
+                    "reopen_seconds": reopen_s,
+                    "recover_ms": recover_s * 1e3,
+                    "resume_blocks": resumed["blocks"],
+                    "resume_blocks_per_s": resumed["blocks_per_s"],
+                    "resume_device_windows": resumed["device_windows"],
+                    "killed_run_launches": killed_path,
+                    "launches": resumed["launches"]}
+            if seg_bytes:
+                line["reduced"] = (f"segment_bytes {seg_bytes} (default "
+                                   f"{kesque.DEFAULT_SEGMENT_BYTES}) so that "
+                                   "a window's spill rolls segments")
+            emit(line)
+            del bc, drv, engine
+
+        # compact_kesque ------------------------------------------------
+        name = "compact_kesque"
+        storages = replayed.storages
+        engine = storages.kesque_engine
+        sources = node_sources(storages)
+        root = head.state_root
+
+        def totals(stats):
+            rows = [r for t in kesque.NODE_TOPICS for r in stats.get(t, [])]
+            return {"segments": len(rows),
+                    "live_bytes": sum(r["live_bytes"] for r in rows),
+                    "garbage_bytes": sum(r["garbage_bytes"] for r in rows)}
+
+        def all_equal():
+            return all(sources[i].get(k) == v for i, k, v in reachable_nodes)
+
+        raised = None
+        with active(FaultPlan(seed=args.seed, rules=[FaultRule(
+                "kesque.compact", "raise", times=1)])):
+            try:
+                engine.compact(root)
+            except InjectedFault as e:
+                raised = e
+        check(raised is not None and engine.compactions == 0 and all_equal(),
+              f"{name}: the store after a kesque.compact raise")
+        before = totals(engine.segment_stats())
+        stop, wrong, reads = threading.Event(), [], [0] * 4
+
+        def reader(j):
+            while not stop.is_set():
+                for i, k, v in reachable_nodes:
+                    if sources[i].get(k) != v:
+                        wrong.append(k)
+                    reads[j] += 1
+
+        threads = [threading.Thread(target=reader, args=(j,), daemon=True)
+                   for j in range(4)]
+        for t in threads:
+            t.start()
+        t0 = time.perf_counter()
+        try:
+            report = engine.compact(root)
+        finally:
+            compact_s = time.perf_counter() - t0
+            stop.set()
+            for t in threads:
+                t.join(timeout=60)
+        check(not any(t.is_alive() for t in threads), f"{name}: a reader "
+              "thread did not stop")
+        check(not wrong and sum(reads) > 0, f"{name}: {len(wrong)} of "
+              f"{sum(reads)} concurrent reads were wrong")
+        check(report.reclaimed_bytes > 0 and report.missing == 0
+              and report.corrupt == 0
+              and report.total == len(reachable_nodes), f"{name}: {report}")
+        after = totals(engine.segment_stats())
+        walk = verify_reachable(storages.account_node_storage,
+                                storages.storage_node_storage,
+                                storages.evmcode_storage, root,
+                                verify_hashes=True)
+        check(walk.missing == 0 and walk.corrupt == 0, f"{name}: {walk}")
+        storages.stop()
+        del replayed, storages, engine, sources
+        bc, reopen_s = reopen(name, replayed_dir)
+        walk = verify_reachable(bc.storages.account_node_storage,
+                                bc.storages.storage_node_storage,
+                                bc.storages.evmcode_storage, root,
+                                verify_hashes=True)
+        check(walk.missing == 0 and walk.corrupt == 0
+              and bc.storages.storage_repair_report() == [],
+              f"{name}: after reopening: {walk}")
+        read_back(f"{name} reopen", bc)
+        bc.storages.stop()
+        emit({"phase": name, "seconds": compact_s,
+              "reclaimed_bytes": report.reclaimed_bytes,
+              "copied_nodes": report.total, "before": before,
+              "after": after, "concurrent_reads": sum(reads),
+              "reader_threads": len(threads),
+              "disk_bytes_after": disk_bytes(replayed_dir),
+              "reopen_seconds": reopen_s, "raise_then_compact": True})
+        del bc
+
+        # segment_ingest_100k -------------------------------------------
+        name = "segment_ingest_100k"
+        root, snapshot = fs100k["root"], fs100k["stores"]
+        n_nodes = sum(len(s) for s in snapshot)
+        src = kesque.KesqueEngine(os.path.join(tmp, "ingest_src"),
+                                  segment_bytes=128 << 10)
+        t0 = time.perf_counter()
+        for topic, nodes in zip(kesque.NODE_TOPICS, snapshot):
+            src.store(topic).append_batch([], nodes)
+        source_s = time.perf_counter() - t0
+        manifest = src.list_segments()
+        target = Storages("kesque", os.path.join(tmp, "ingest_dst"))
+        observability.SPAN_TOTALS.clear()
+        observability.enable()
+        launches.zero()
+        t0 = time.perf_counter()
+        report = segment_snapshot_ingest(target, src.list_segments,
+                                         src.read_chunk, target_root=root,
+                                         workers=4, chunk_bytes=1 << 20)
+        ingest_s = time.perf_counter() - t0
+        observability.enable(False)
+        path = launches.read(name, ())
+        stream_s = observability.SPAN_TOTALS["fastsync.segment_ingest"][1]
+        check(report.records == n_nodes and report.corrupt_frames == 0
+              and report.segments == len(manifest), f"{name}: {report}")
+        check(report.missing == 0 and report.corrupt_nodes == 0
+              and report.verified_nodes == n_nodes
+              and target.app_state.fast_sync_done, f"{name}: the walk "
+              f"after ingest: {report}")
+        for store, nodes in zip(node_sources(target), snapshot):
+            check(store.count == len(nodes), f"{name}: a target store holds "
+                  f"{store.count} of {len(nodes)} nodes")
+        target.stop()
+        # one flipped byte in a shipped chunk: a frame that fails its CRC
+        # ends the chunk's scan; a frame whose tag is bent (its CRC made
+        # anew) is counted corrupt; neither record lands under any key
+        raw, _, _ = src.read_chunk("account", manifest[0][1], 0, 1 << 20)
+        frames, _ = segment.scan_frames(raw)
+        mid = len(frames) // 2
+        off, payload = frames[mid]
+        want_key = keccak256(payload[1:])
+        bent = bytearray(raw)
+        bent[off + segment.FRAME_HEADER + len(payload) // 2] ^= 0x01
+        retagged = (raw[:off] + segment.frame(b"\x4f" + payload[1:])
+                    + raw[off + segment.FRAME_HEADER + len(payload):])
+        flipped = {}
+        for label, chunk, want in (("crc", bytes(bent), (mid, 0)),
+                                   ("tag", retagged, (len(frames) - 1, 1))):
+            eng = kesque.KesqueEngine(os.path.join(tmp, f"flip_{label}"))
+            got = eng.ingest_chunk("account", chunk)
+            check(got == want and eng.store("account").get(want_key) is None
+                  and all(keccak256(eng.store("account").get(k)) == k
+                          for k in eng.store("account").keys()),
+                  f"{name}: a chunk with a flipped {label} byte gave {got}, "
+                  f"want {want}")
+            flipped[label] = {"records": got[0], "corrupt": got[1]}
+            eng.stop()
+        src.stop()
+        # the admission hash's GIL: one thread against four on the
+        # snapshot's values
+        values = [v for nodes in snapshot for v in nodes.values()]
+        t0 = time.perf_counter()
+        keccak256_batch(values)
+        one_s = time.perf_counter() - t0
+        parts = [values[j::4] for j in range(4)]
+        pool = [threading.Thread(target=keccak256_batch, args=(p,))
+                for p in parts]
+        t0 = time.perf_counter()
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join()
+        four_s = time.perf_counter() - t0
+        sync_s = fs100k["seconds"]
+        emit({"phase": name, "nodes": n_nodes, "segments": len(manifest),
+              "segment_bytes": 128 << 10, "chunk_bytes": 1 << 20,
+              "workers": 4, "records": report.records,
+              "bytes": report.bytes, "source_append_seconds": source_s,
+              "seconds": ingest_s, "stream_seconds": stream_s,
+              "stream_mb_per_s": report.bytes / stream_s / 1e6,
+              "walk_seconds": ingest_s - stream_s,
+              "fast_sync_seconds": sync_s,
+              "fast_sync_over_ingest": sync_s / ingest_s,
+              "targets": "segment ingest: Storages('kesque') on disk, the "
+              "host batch hash; fast_sync: memory Storages with a "
+              "DeviceNodeMirror, K1r content checks and a K4 verify",
+              "corrupt_frames": report.corrupt_frames,
+              "walk_missing": report.missing,
+              "walk_corrupt": report.corrupt_nodes, "flipped_byte": flipped,
+              "batch_hash_one_thread_s": one_s,
+              "batch_hash_four_threads_s": four_s, "launches": path})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def tip_of(bc):
@@ -2552,6 +3055,8 @@ def main() -> int:
           "verify_calls": verify_calls,
           "spans_s": sync_spans, "reachable_walk_seconds": walk_s,
           "held_against_plain": sync_held, "launches": path})
+    # the snapshot segment_ingest_100k streams, and the time to beat
+    fs100k = {"root": src_root, "stores": stores, "seconds": sync_s}
     del sync_mirror, target, syncer
 
     # 10. window_admit: the window's admit tiles into a mirror ------------
@@ -2603,9 +3108,11 @@ def main() -> int:
     k5_replay, w8 = windowed_phases(args, torch, dev, launches, chains)
     k5_err = max(k5_err, max(w["max_abs_err"] for w in k5_replay.values()))
     emit(ethash_phase())
-    recovery_phases(args, torch, dev, launches, w8,
+    rec = recovery_helpers(args, torch, dev, launches, w8)
+    recovery_phases(args, torch, dev, launches, w8, rec,
                     chains["replay_erc20"][2])
-    del w8, chains
+    kesque_phases(args, torch, dev, launches, w8, rec, fs100k)
+    del w8, chains, rec, fs100k
 
     tot = launches.total
     k1r_main = batch100["100x1+4"]
@@ -2636,8 +3143,8 @@ def main() -> int:
          "replaces": "khipu_tpu/trie/fused.py:193",
          "launches": tot["k5"], "max_abs_err": k5_err,
          "launches_note": "state root 3, window_admit 1, one a device "
-         "window of each windowed replay, killed run, resume and "
-         "windowed adoption",
+         "window of each windowed replay (the kesque replay among them), "
+         "killed run, resume and windowed adoption",
          "shape": "window_16x400",
          "ms": k5_window["k5_ms"], "plain_ms": k5_window["plain_ms"],
          "bound_ms": k5_window["bound_ms"], "bound_by": k5_window["bound_by"],

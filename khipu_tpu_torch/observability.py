@@ -16,7 +16,8 @@ movement ledger). This module is what those call sites need:
   counters; ``REGISTRY.inc(group, key)`` raises one under the
   registry's lock. ``REGISTRY.register_collector(name, fn)`` keeps one
   pull collector per name (a later one replaces it); ``collect()``
-  returns every collector's ``(name, kind, labels, value)`` samples.
+  returns every collector's ``(name, kind, labels, value)`` samples,
+  leaving out a collector that raises.
   The port's registry is its own object, so nothing here can reset or
   share a gauge of the JAX package.
 * ``compile_log`` — build and shape-cache events (hit / miss with
@@ -76,12 +77,17 @@ class _Registry:
             self._collectors[name] = fn
 
     def collect(self) -> List[tuple]:
-        """Every registered collector's samples, in name order."""
+        """Every registered collector's samples, in name order. A
+        collector that raises (one over a stopped store's closed files)
+        is left out of this scrape, as in the reference registry."""
         with self._lock:
             fns = [self._collectors[k] for k in sorted(self._collectors)]
         out: List[tuple] = []
         for fn in fns:
-            out.extend(fn())
+            try:
+                out.extend(fn())
+            except Exception:
+                continue
         return out
 
     def gauge_group(self, name: str, defaults: Dict[str, float],

@@ -4,15 +4,16 @@ log (storage/KesqueCompactor.scala:32: NodeReader.processNode :72-92
 walks the trie, NodeWriter :125 copies to the new file generation).
 
 Works over any (source-store, target-store) pair with get/update. The
-port's counterpart of ``khipu_tpu.storage.compactor``; the Kesque
-segment fields of its report are not carried (the port has no segment
-engine yet). ``verify_reachable`` is the completeness check after a
-fast sync.
+port's counterpart of ``khipu_tpu.storage.compactor``: the memory and
+persistent engines copy into a new store, the Kesque engine
+(``storage/kesque.py``) into staged segments it swaps in, and fills the
+report's segment fields. ``verify_reachable`` is the completeness check
+after a fast sync.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Tuple
 
 from khipu_tpu_torch.sync.fast_sync import (
@@ -30,6 +31,11 @@ class CompactionReport:
     code_blobs: int = 0
     missing: int = 0
     corrupt: int = 0  # stored bytes whose keccak != key (verify_hashes)
+    # segment-engine extensions (storage/kesque.py fills these in:
+    # bytes the swap freed, and the post-compaction per-segment
+    # live/garbage split feeding the khipu_kesque_* registry families)
+    reclaimed_bytes: int = 0
+    segment_stats: dict = field(default_factory=dict)
 
     @property
     def total(self) -> int:

@@ -8,8 +8,9 @@ appState; bestBlockNumber = min(bestBody, bestReceipts) :40) and the
 window-commit journal's topic, with ServiceBoard.scala:99-138's engine
 selection by ``db.engine``: ``memory`` | ``native`` (the C++ append-log,
 ``native/store.py``) | ``sqlite`` (the embedded-KV alternative,
-``storage/sqlite_engine.py``). The log-structured ``kesque`` engine is
-not ported yet (ROADMAP A7).
+``storage/sqlite_engine.py``) | ``kesque`` (the paper's log-structured
+segment engine, ``storage/kesque.py``, with segment streaming and
+compaction).
 """
 
 from __future__ import annotations
@@ -36,6 +37,9 @@ class Storages:
     def __init__(self, engine: str = "memory", data_dir: Optional[str] = None,
                  unconfirmed_depth: int = 20, cache_size: int = 1 << 20):
         self.engine = engine
+        # set for engine == "kesque" only: the log-structured engine's
+        # compaction and segment-streaming surface (storage/kesque.py)
+        self.kesque_engine = None
         if engine == "memory":
             node_src = lambda topic: MemoryNodeDataSource()
             block_src = lambda topic: MemoryBlockDataSource()
@@ -65,8 +69,14 @@ class Storages:
             block_src = lambda topic: SqliteBlockDataSource(data_dir, topic)
             kv_src = lambda topic: SqliteKeyValueDataSource(data_dir, topic)
         elif engine == "kesque":
-            raise ValueError("db.engine 'kesque' is not ported to "
-                             "khipu_tpu_torch yet (ROADMAP A7)")
+            if data_dir is None:
+                raise ValueError("kesque engine requires data_dir")
+            from khipu_tpu_torch.storage.kesque import KesqueEngine
+
+            self.kesque_engine = KesqueEngine(data_dir)
+            node_src = self.kesque_engine.node_source
+            block_src = self.kesque_engine.block_source
+            kv_src = self.kesque_engine.kv_source
         else:
             raise ValueError(f"unknown db.engine {engine!r}")
 
@@ -129,11 +139,13 @@ class Storages:
         self.storage_node_storage.mirror = None
 
     def storage_repair_report(self) -> List[str]:
-        """Open-time storage-layer repairs, as report lines for journal
-        recovery to surface. The memory, native and sqlite engines
-        perform none on open (the kesque engine's torn-tail scan-back
-        comes with it, ROADMAP A7)."""
-        return []
+        """Open-time storage-layer repairs (the kesque engine's torn-tail
+        scan-back and index rebuilds), as report lines for journal
+        recovery to surface. Empty for the memory, native and sqlite
+        engines, whose open path performs no repair."""
+        if self.kesque_engine is None:
+            return []
+        return self.kesque_engine.repair_lines()
 
     def get_node_any(self, h: bytes):
         """One node/code lookup across the three content-addressed

@@ -4,8 +4,8 @@ and batched content-address verification.
 The port's counterpart of ``khipu_tpu.sync.fast_sync``. The default
 hasher is the batched sponge on ``device`` (kernel K1r on the card), not
 the host scalar hash, and the final mirror verify runs kernel K4 per
-size class. ``segment_snapshot_ingest`` needs the Kesque segment engine
-and is not ported yet.
+size class. ``segment_snapshot_ingest`` streams a Kesque engine's
+segments into another (``storage/kesque.py``).
 
 Parity: blockchain/sync/FastSyncService.scala:100 (SyncState :65-82
 seeds the queue with StateMptNodeHash(target.stateRoot) :252; received
@@ -257,3 +257,106 @@ class StateSyncer:
         self.state_storage.purge()
         self.storages.app_state.mark_fast_sync_done()
         return state
+
+
+@dataclass
+class SegmentIngestReport:
+    """What the segment-streamed ingest moved and proved."""
+
+    segments: int = 0
+    records: int = 0
+    bytes: int = 0
+    corrupt_frames: int = 0
+    verified_nodes: int = 0  # post-ingest reachability walk
+    missing: int = 0
+    corrupt_nodes: int = 0
+
+
+def segment_snapshot_ingest(
+    storages,
+    list_segments: Callable[[], List[Tuple[str, int, int]]],
+    fetch_chunk: Callable[[str, int, int, int], Tuple[bytes, int, bool]],
+    target_root: Optional[bytes] = None,
+    workers: int = 4,
+    chunk_bytes: int = 1 << 20,
+) -> SegmentIngestReport:
+    """The Kesque bulk-ingest path: stream whole VERIFIED segments in
+    parallel instead of walking the trie node-by-node (StateSyncer).
+
+    Why it is faster: the per-node loop pays one fetch round-trip per
+    ``batch_size`` nodes AND must parse every node to discover its
+    children before it can even request them — the trie walk serializes
+    discovery. Segment streaming needs zero discovery (the source's
+    segment manifest IS the work list), ships megabyte chunks, and
+    lands each chunk as one sequential ``append_batch``. Verification
+    is not skipped — it is free: every shipped record is admitted under
+    its recomputed keccak, so a corrupt frame simply cannot land under
+    a valid key (the same content-address argument as
+    KesqueNodeDataSource.scala:61-63), and the optional
+    ``target_root`` walk re-proves reachability exactly like crash
+    recovery does.
+
+    ``list_segments() -> [(topic, seq, size), ...]`` and
+    ``fetch_chunk(topic, seq, offset, max_bytes) -> (raw, next, done)``
+    abstract the wire (a peer's segment-serving surface, or a local
+    engine's ``list_segments`` / ``read_chunk``). The admission hash is
+    the native host batch hash inside ``KesqueEngine.ingest_chunk``,
+    whose C call releases the GIL, so the ``workers`` threads hash at
+    once. Requires a kesque-backed ``storages`` (segments are the unit
+    of movement — there is nothing to bulk-append into otherwise)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from khipu_tpu_torch.chaos import fault_point
+
+    engine = getattr(storages, "kesque_engine", None)
+    if engine is None:
+        raise RuntimeError(
+            "segment ingest requires Storages(engine='kesque')"
+        )
+    report = SegmentIngestReport()
+    manifest = list_segments()
+
+    def pull(item: Tuple[str, int, int]) -> Tuple[int, int, int]:
+        topic, seq, _size = item
+        records = nbytes = corrupt = 0
+        offset, done = 0, False
+        while not done:
+            fault_point("kesque.ingest")
+            raw, offset, done = fetch_chunk(topic, seq, offset,
+                                            chunk_bytes)
+            if not raw:
+                break
+            n, bad = engine.ingest_chunk(topic, raw)
+            records += n
+            corrupt += bad
+            nbytes += len(raw)
+        return records, nbytes, corrupt
+
+    with span("fastsync.segment_ingest"):
+        with ThreadPoolExecutor(max_workers=max(1, workers)) as pool:
+            for records, nbytes, corrupt in pool.map(pull, manifest):
+                report.segments += 1
+                report.records += records
+                report.bytes += nbytes
+                report.corrupt_frames += corrupt
+
+    if target_root is not None:
+        from khipu_tpu_torch.storage.compactor import verify_reachable
+
+        walk = verify_reachable(
+            storages.account_node_storage,
+            storages.storage_node_storage,
+            storages.evmcode_storage,
+            target_root, verify_hashes=True,
+        )
+        report.verified_nodes = walk.total
+        report.missing = walk.missing
+        report.corrupt_nodes = walk.corrupt
+        if walk.missing or walk.corrupt:
+            raise RuntimeError(
+                f"segment ingest incomplete: {walk.missing} missing / "
+                f"{walk.corrupt} corrupt nodes reachable from target "
+                "root"
+            )
+        storages.app_state.mark_fast_sync_done()
+    return report

@@ -366,12 +366,20 @@ def recover(blockchain, log: Optional[Callable[[str], None]] = None,
     recovery passes None — a restarted process has no pool to
     protect.
 
-    Open-time storage repairs are surfaced as ``storage:`` action lines
-    via ``storages.storage_repair_report`` (none for the memory, native
-    and sqlite engines; the kesque engine's torn-tail scan-back comes
-    with ROADMAP A7). A record a torn engine lost classifies as
-    ``missing`` in ``_verify_window``'s hash-verified reachability walk
-    and rolls its window back."""
+    Torn segment tails (kesque engine, docs/kesque.md): the storage
+    layer's OWN open-time repair runs before this pass ever sees the
+    stores — ``Segment.open`` scans back over any frame torn by a
+    death inside ``kesque.append``/``kesque.roll`` and truncates to
+    the last valid boundary, and a sidecar index that covers the
+    truncated bytes (a ``kesque.index`` death) is discarded for a
+    full rebuild. What recovery sees is therefore a PREFIX of the
+    appended records; ``_verify_window``'s hash-verified reachability
+    walk then classifies any record lost off the tail as ``missing``
+    and rolls the torn window back — the same verdict a torn sqlite
+    write would get. The repairs themselves are surfaced as
+    ``storage:`` action lines via ``storages.storage_repair_report``
+    (none for the memory, native and sqlite engines), so the
+    scan-back is visible in recovery output."""
     storages = blockchain.storages
     # the device mirror is volatile: recovery verification must see
     # exactly what a real restart would see — host-durable state only.

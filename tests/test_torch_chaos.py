@@ -432,7 +432,8 @@ def test_seam_audit():
         "storage.kv.put", "storage.node.get", "storage.node.put",
         "storage.block.get", "storage.block.put", "reorg.intent",
         "reorg.rollback", "reorg.adopt", "reorg.finalize",
-        "fused.dispatch", "fused.collect"}
+        "fused.dispatch", "fused.collect", "kesque.append", "kesque.roll",
+        "kesque.index", "kesque.compact", "kesque.ingest"}
     import inspect
 
     tests = "".join(
