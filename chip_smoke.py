@@ -1315,7 +1315,12 @@ def windowed_phases(args, torch, dev, launches, chains) -> tuple:
         reopened.storages.stop()
         emit({"phase": f"{name}_durable", "window": 8, "engine": "native",
               **run, "reopen_seconds": reopen_s, "data_bytes": data_bytes,
-              "memory_engine": native})
+              "memory_engine": native,
+              # the persist stage's rate with every topic flushed to the
+              # OS before each window's commit mark and after each block
+              "native_persist_mb_per_s": run["persist_bytes_per_s"] / 1e6,
+              "memory_persist_mb_per_s":
+                  lines[name]["persist_bytes_per_s"] / 1e6})
         del reopened
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
@@ -1328,7 +1333,9 @@ def windowed_phases(args, torch, dev, launches, chains) -> tuple:
               "memory": lines[name]["persist_bytes_per_s"],
               "native": run["persist_bytes_per_s"]},
           "blocks_per_s": {"memory": lines[name]["blocks_per_s"],
-                           "native": run["blocks_per_s"]}}
+                           "native": run["blocks_per_s"]},
+          # the chain live_sync_erc20_100k serves
+          "chain_100k": (builder_100k, spec_100k, blocks_100k)}
     del ref, erc20_w8
 
     # parallel and scheduled execution (the default parallel_tx and
@@ -2420,6 +2427,354 @@ def kesque_phases(args, torch, dev, launches, w8, rec, fs100k) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+LIVE_SYNC_SERVERS = 3  # one of them never answers GetNodeData
+LIVE_SYNC_PIVOT_OFFSET = 16
+LIVE_SYNC_WINDOW = 8
+LIVE_SYNC_BATCH = 16
+
+
+def live_sync_phase(args, torch, dev, launches, chain100k) -> dict:
+    """live_sync_erc20_100k: a fresh node brought up over RLPx on
+    127.0.0.1 from three port nodes serving replay_erc20_100k_w8's chain
+    (one never answers GetNodeData): ``FastSyncService(device=None)`` to
+    the pivot (median best - 16), ``RegularSyncService(device=None,
+    batch_size=16)`` at window 8 to the servers' best (one windowed
+    import of two windows), then a block sealed by a server-side
+    ``Miner(peer_manager=)`` and pushed over NewBlock, imported block by
+    block on the client's reader thread while the pull loop stays idle.
+    Gates: the head root and the reachable nodes equal the server's,
+    headers, bodies and receipts equal, a peer blacklisted, K1r = the
+    content checks + the push's flush levels + the sender batches, K5 =
+    2 device windows and no host window, mirror verify 0, no fall-back
+    log line."""
+    from khipu_tpu_torch import observability, workloads
+    from khipu_tpu_torch.base import aes as aes_oracle
+    from khipu_tpu_torch.base.secp256k1 import privkey_to_pubkey
+    from khipu_tpu_torch.domain.blockchain import Blockchain
+    from khipu_tpu_torch.domain.transaction import recover_senders
+    from khipu_tpu_torch.ledger.window import WINDOW_GAUGES
+    from khipu_tpu_torch.mining import Miner
+    from khipu_tpu_torch.native import aes
+    from khipu_tpu_torch.network import peer as peer_mod
+    from khipu_tpu_torch.network import snappy_codec
+    from khipu_tpu_torch.network.host_service import HostService
+    from khipu_tpu_torch.network.messages import (
+        ETH_OFFSET,
+        GET_NODE_DATA,
+        Status,
+    )
+    from khipu_tpu_torch.network.peer import PeerManager
+    from khipu_tpu_torch.storage.storages import Storages
+    from khipu_tpu_torch.sync import prefetch
+    from khipu_tpu_torch.sync.fast_sync_service import FastSyncService
+    from khipu_tpu_torch.sync.regular_sync import RegularSyncService
+    from khipu_tpu_torch.sync.replay import PIPELINE_GAUGES
+    from khipu_tpu_torch.txpool import PendingTransactionsPool
+
+    name = "live_sync_erc20_100k"
+    builder, spec, blocks = chain100k
+    server_bc = builder.blockchain
+    best = blocks[-1].number
+    pivot_want = best - LIVE_SYNC_PIVOT_OFFSET
+    cfg = workloads.replay_config(
+        commit_window_blocks=LIVE_SYNC_WINDOW,
+        min_peers_to_choose_pivot=LIVE_SYNC_SERVERS,
+        pivot_block_offset=LIVE_SYNC_PIVOT_OFFSET,
+        nodes_per_request=100, peer_request_timeout=1.0)
+
+    def status_of(bc):
+        def make():
+            n = bc.best_block_number
+            return Status(63, 1, bc.get_total_difficulty(n) or 0,
+                          bc.get_hash_by_number(n), bc.get_hash_by_number(0))
+        return make
+
+    # native AES beside the pure-Python oracle, on the host
+    data = os.urandom(16 << 20)
+    t0 = time.perf_counter()
+    aes.ctr_crypt(b"k" * 32, b"\x00" * 16, data)
+    aes_mb_s = len(data) / (time.perf_counter() - t0) / 1e6
+    t0 = time.perf_counter()
+    aes_oracle.ctr_crypt(b"k" * 32, b"\x00" * 16, data[:1 << 16])
+    aes_py_mb_s = (1 << 16) / (time.perf_counter() - t0) / 1e6
+
+    # snappy decompress runs in Python on every received frame: time it
+    unsnap = {"calls": 0, "seconds": 0.0, "bytes": 0}
+    real_decompress = snappy_codec.decompress
+
+    def timed_decompress(payload, *a, **k):
+        t = time.perf_counter()
+        out = real_decompress(payload, *a, **k)
+        unsnap["seconds"] += time.perf_counter() - t
+        unsnap["calls"] += 1
+        unsnap["bytes"] += len(out)
+        return out
+
+    managers = []
+    servers = []
+    logs = []
+    peer_mod.snappy_codec.decompress = timed_decompress
+    try:
+        for i in range(LIVE_SYNC_SERVERS):
+            priv = (0x5E7E0 + i).to_bytes(32, "big")
+            m = PeerManager(priv, f"khipu-tpu-torch/server{i}",
+                            status_of(server_bc))
+            managers.append(m)
+            HostService(server_bc).install(m)
+            if i == LIVE_SYNC_SERVERS - 1:
+                # takes every GetNodeData and never answers
+                m.handlers[ETH_OFFSET + GET_NODE_DATA] = lambda body: None
+            servers.append((m, m.listen(), privkey_to_pubkey(priv)))
+
+        client_bc = Blockchain(Storages(), cfg)
+        launches.zero()
+        t0 = time.perf_counter()
+        client_bc.load_genesis(spec, on_device=True, device=dev)
+        torch.cuda.synchronize()
+        genesis_s = time.perf_counter() - t0
+        genesis = launches.read(f"{name} genesis", ("k1r",))
+        client = PeerManager((0xC11E47).to_bytes(32, "big"),
+                             "khipu-tpu-torch/client", status_of(client_bc))
+        managers.append(client)
+        wire = {"up": 0, "down": 0}
+        handshake_ms = []
+        for _, port, pub in servers:
+            t0 = time.perf_counter()
+            peer = client.connect("127.0.0.1", port, pub, timeout=10.0)
+            handshake_ms.append((time.perf_counter() - t0) * 1e3)
+            codec = peer.codec
+            write, read = codec.write_frame, codec.read_frame
+
+            def counted_write(frame, _write=write):
+                out = _write(frame)
+                wire["up"] += len(out)
+                return out
+
+            def counted_read(size, ct_mac, _read=read):
+                wire["down"] += 32 + len(ct_mac)
+                return _read(size, ct_mac)
+
+            codec.write_frame, codec.read_frame = counted_write, counted_read
+
+        # fast sync: pivot, state download (content checks: K1r), backfill
+        svc = FastSyncService(client_bc, cfg, client, log=logs.append)
+        split = {"pivot": 0.0, "backfill": 0.0}
+
+        def timed(key, fn):
+            def run(*a, **k):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    split[key] += time.perf_counter() - t
+            return run
+
+        pivots = []
+        choose = svc.choose_pivot
+
+        def choose_and_keep():
+            pivots.append(choose())
+            return pivots[-1]
+
+        svc.choose_pivot = timed("pivot", choose_and_keep)
+        svc._backfill_blocks = timed("backfill", svc._backfill_blocks)
+        observability.SPAN_TOTALS.clear()
+        observability.enable()
+        launches.zero()
+        t0 = time.perf_counter()
+        state = svc.run()
+        torch.cuda.synchronize()
+        fast_s = time.perf_counter() - t0
+        fast = launches.read(f"{name} fast sync", ("k1r",))
+        verify_calls = observability.SPAN_TOTALS["fastsync.verify"][0]
+        observability.enable(False)
+        pivot = pivots[-1].number
+        check(pivot == pivot_want, f"{name}: pivot {pivot} != {pivot_want}")
+        check(fast["k1r"] == verify_calls and fast["k5"] == fast["k4"] == 0,
+              f"{name}: fast sync launched {fast} for {verify_calls} "
+              "content checks")
+        check(svc.pool.blacklisted >= 1
+              and client.blacklist.is_blacklisted(servers[-1][2]),
+              f"{name}: the stalling server was not blacklisted")
+        check(client_bc.best_block_number == pivot,
+              f"{name}: best {client_bc.best_block_number} after fast sync")
+        for n in range(1, pivot + 1):
+            for store in ("block_header_storage", "block_body_storage",
+                          "receipts_storage"):
+                check(getattr(client_bc.storages, store).get(n)
+                      == getattr(server_bc.storages, store).get(n),
+                      f"{name}: backfilled block {n}'s {store}")
+        wire_fast = dict(wire)
+
+        # regular sync: one full batch through the windowed device commit
+        sync = RegularSyncService(client_bc, cfg, client,
+                                  batch_size=LIVE_SYNC_BATCH,
+                                  request_timeout=10.0, log=logs.append)
+        prefetch.flush_sender_cache()
+        before = {"batches": prefetch.PREFETCH_GAUGES["device_batches"],
+                  "device_windows": WINDOW_GAUGES["device_windows"],
+                  "host_windows": WINDOW_GAUGES["host_windows"],
+                  "deaths": PIPELINE_GAUGES["collector_deaths"]}
+        # every block the round hands to the per-block import (a heal,
+        # a refused or shorter window): none is wanted here
+        per_block, real_healing = [0], sync._import_healing
+
+        def counting_healing(peer, block):
+            per_block[0] += 1
+            return real_healing(peer, block)
+
+        sync._import_healing = counting_healing
+        observability.SPAN_TOTALS.clear()
+        observability.enable()
+        launches.zero()
+        t0 = time.perf_counter()
+        sync.run(until=lambda: client_bc.best_block_number >= best,
+                 max_seconds=300)
+        torch.cuda.synchronize()
+        regular_s = time.perf_counter() - t0
+        sync._import_healing = real_healing
+        reg = launches.read(f"{name} regular sync", ("k5",))
+        spans = {k: v[1] for k, v in observability.SPAN_TOTALS.items()}
+        observability.enable(False)
+        fetch_s = spans.get("sync.fetch.headers", 0.0) + spans.get(
+            "sync.fetch.bodies", 0.0)
+        device_w = WINDOW_GAUGES["device_windows"] - before["device_windows"]
+        host_w = WINDOW_GAUGES["host_windows"] - before["host_windows"]
+        senders = prefetch.PREFETCH_GAUGES["device_batches"] - before["batches"]
+        windows = (best - pivot) // LIVE_SYNC_WINDOW
+        check(PIPELINE_GAUGES["collector_deaths"] == before["deaths"],
+              f"{name}: a collector died")
+        check(per_block[0] == 0,
+              f"{name}: {per_block[0]} blocks imported per block in the "
+              "windowed import")
+        check(device_w == windows == 2 and host_w == 0 and reg["k5"] == 2,
+              f"{name}: K5 {reg['k5']} for {device_w} device + {host_w} "
+              "host windows (2 device windows wanted)")
+        check(reg["k1r"] == senders,
+              f"{name}: K1r launched {reg['k1r']} times in regular sync for "
+              f"{senders} sender batches: a trie commit launched K1r")
+        launches.zero()
+        bad = sync._driver._mirror.verify()
+        torch.cuda.synchronize()
+        verify = launches.read(f"{name} mirror verify", ("k4",))
+        check(bad == 0, f"{name}: mirror verify found {bad}")
+
+        # the push: a server seals the next block and propagates it; the
+        # client imports it on a reader thread, K1r a trie level
+        sync.install_new_block_handler()
+        drv = sync._driver
+        levels, push_ms = [0], []
+        real_hasher, real_import = drv.hasher, drv._execute_and_insert
+
+        def counting_hasher(msgs):
+            if len(msgs):
+                levels[0] += 1
+            return real_hasher(msgs)
+
+        def timed_import(block, stats):
+            t = time.perf_counter()
+            real_import(block, stats)
+            torch.cuda.synchronize()
+            push_ms.append((time.perf_counter() - t) * 1e3)
+
+        drv.hasher, drv._execute_and_insert = counting_hasher, timed_import
+        pool = PendingTransactionsPool()
+        txs = workloads.erc20_transfers(best - 1, 200, 256)
+        recover_senders(txs)
+        for stx in txs:
+            pool.add(stx)
+        miner = Miner(server_bc, workloads.replay_config(), pool,
+                      workloads.COINBASE, peer_manager=servers[0][0])
+        batches0 = prefetch.PREFETCH_GAUGES["device_batches"]
+        launches.zero()
+        t0 = time.perf_counter()
+        sealed = miner.mine_next()
+        seal_s = time.perf_counter() - t0
+        deadline = time.monotonic() + 60
+        while (client_bc.best_block_number < sealed.number
+               and sync._push_error is None and time.monotonic() < deadline
+               and not any("rejected" in m for m in logs)):
+            time.sleep(0.01)
+        torch.cuda.synchronize()
+        push = launches.read(f"{name} pushed block", ("k1r",))
+        check(sync._push_error is None,
+              f"{name}: the pushed import failed: {sync._push_error!r}")
+        check(client_bc.best_block_number == sealed.number == best + 1
+              and len(sealed.body.transactions) == len(txs),
+              f"{name}: the pushed block {sealed.number} did not land "
+              f"(best {client_bc.best_block_number})")
+        push_senders = prefetch.PREFETCH_GAUGES["device_batches"] - batches0
+        check(push["k1r"] == levels[0] + push_senders and levels[0] > 0
+              and push["k5"] == 0,
+              f"{name}: the push launched {push} for {levels[0]} flush "
+              f"levels and {push_senders} sender batches")
+        drv.hasher, drv._execute_and_insert = real_hasher, real_import
+
+        head = sealed.header.state_root
+        check(client_bc.get_header_by_number(sealed.number).state_root
+              == server_bc.get_header_by_number(sealed.number).state_root
+              == head, f"{name}: the head root differs from the server's")
+        report, nodes = reachable(client_bc.storages, head)
+        _, server_nodes = reachable(server_bc.storages, head)
+        check(report.missing == 0 and report.corrupt == 0
+              and nodes == server_nodes,
+              f"{name}: reachable nodes at the head != the server's "
+              f"({report})")
+        for n in range(pivot + 1, sealed.number + 1):
+            check(client_bc.storages.receipts_storage.get(n)
+                  == server_bc.storages.receipts_storage.get(n),
+                  f"{name}: block {n}'s receipts differ")
+        # the port's lines for a heal, a refused batch or block, and a
+        # round or push that failed: none is wanted in this phase
+        off_path = [m for m in logs if any(w in m for w in (
+            "per block", "failed locally", "failed mid-round", "rejected",
+            "device error"))]
+        check(not off_path, f"{name}: {off_path}")
+    finally:
+        peer_mod.snappy_codec.decompress = real_decompress
+        for m in managers:
+            m.stop()
+    regular_blocks = best - pivot
+    return {
+        "phase": name, "card": card_line(),
+        "accounts": len(spec.alloc), "servers": LIVE_SYNC_SERVERS,
+        "stalling_servers": 1, "blacklisted": svc.pool.blacklisted,
+        "pivot": pivot, "best": client_bc.best_block_number,
+        "nodes_downloaded": state.downloaded_nodes,
+        "fast_sync_seconds": fast_s,
+        "fast_sync_split_s": {"pivot": split["pivot"],
+                              "state_download": fast_s - split["pivot"]
+                              - split["backfill"],
+                              "backfill": split["backfill"]},
+        "nodes_per_s": state.downloaded_nodes / max(
+            fast_s - split["pivot"] - split["backfill"], 1e-9),
+        "content_checks": verify_calls,
+        "wire_bytes": {"fast_sync": wire_fast, "total": dict(wire)},
+        "handshake_ms": handshake_ms,
+        "aes_native_mb_per_s": aes_mb_s, "aes_python_mb_per_s": aes_py_mb_s,
+        "snappy_decompress": {**unsnap, "mb_per_s": unsnap["bytes"] / max(
+            unsnap["seconds"], 1e-9) / 1e6},
+        "regular_blocks": regular_blocks, "regular_seconds": regular_s,
+        "regular_blocks_per_s": regular_blocks / regular_s,
+        "regular_split_s": {"fetch": fetch_s, "import": regular_s - fetch_s},
+        "regular_spans_s": spans,
+        "windows": windows, "device_windows": device_w, "host_windows": host_w,
+        "sender_batches": senders, "per_block_imports": per_block[0],
+        "mirror_verify": bad,
+        "pushed_block": sealed.number, "pushed_txs": len(sealed.body.transactions),
+        "seal_seconds": seal_s, "pushed_import_ms": push_ms,
+        "pushed_flush_levels": levels[0], "pushed_sender_batches": push_senders,
+        "genesis_seconds": genesis_s,
+        "launches": {"genesis": genesis, "fast_sync": fast,
+                     "regular_sync": reg, "mirror_verify": verify,
+                     "pushed_block": push},
+        "reduced": f"the {len(blocks) - 1}-block ERC-20 chain of "
+        "replay_erc20_100k_w8 over its genesis of "
+        f"{args.accounts:,} bulk accounts, served by three nodes in this "
+        "process over loopback, in place of a mainnet peer set",
+    }
+
+
 def tip_of(bc):
     best = bc.best_block_number
     h = bc.get_header_by_number(best)
@@ -3112,7 +3467,10 @@ def main() -> int:
     recovery_phases(args, torch, dev, launches, w8, rec,
                     chains["replay_erc20"][2])
     kesque_phases(args, torch, dev, launches, w8, rec, fs100k)
+    chain100k = w8["chain_100k"]
     del w8, chains, rec, fs100k
+    emit(live_sync_phase(args, torch, dev, launches, chain100k))
+    del chain100k
 
     tot = launches.total
     k1r_main = batch100["100x1+4"]
@@ -3126,7 +3484,10 @@ def main() -> int:
          "genesis load and sender batches, the serial replays' trie "
          "commits, the per-block adoption's and the rebuilt ancestor "
          "states' commits (the windowed replays' commits launch K5 "
-         "instead)",
+         "instead); live_sync_erc20_100k: the client's genesis load, "
+         "FastSyncService's content checks over the wire, regular sync's "
+         "sender batches and the pushed block's per-block import on a "
+         "peer's reader thread",
          "shape": "100 rows, 1 and 4 rate blocks mixed, column mode",
          "ms": k1r_main["column_kernel_us"] / 1e3,
          "plain_ms": k1r_main["plain_us"] / 1e3,
@@ -3144,7 +3505,8 @@ def main() -> int:
          "launches": tot["k5"], "max_abs_err": k5_err,
          "launches_note": "state root 3, window_admit 1, one a device "
          "window of each windowed replay (the kesque replay among them), "
-         "killed run, resume and windowed adoption",
+         "killed run, resume and windowed adoption; live_sync_erc20_100k: "
+         "RegularSyncService's windowed import after the fast sync, 2",
          "shape": "window_16x400",
          "ms": k5_window["k5_ms"], "plain_ms": k5_window["plain_ms"],
          "bound_ms": k5_window["bound_ms"], "bound_by": k5_window["bound_by"],
@@ -3156,12 +3518,20 @@ def main() -> int:
          "source": "khipu_tpu_torch/storage/csrc/mirror.cu",
          "replaces": "khipu_tpu/storage/device_mirror.py:80",
          "launches": tot["k3"], "max_abs_err": k3_err,
+         "launches_note": "mirror_verify's partial tile, fast sync's "
+         "admits; a size class's filler digest is hashed once a process "
+         "and card, so live_sync_erc20_100k's mirror, whose classes "
+         "earlier phases made, launches none (its regular sync would "
+         "launch one a class if run alone)",
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_bound_by, "library_ms": None},
         {"name": "mirror_verify_k4", "route": "cuda",
          "source": "khipu_tpu_torch/storage/csrc/mirror.cu",
          "replaces": "khipu_tpu/storage/device_mirror.py:167",
          "launches": tot["k4"], "max_abs_err": k4_err,
+         "launches_note": "each mirror verify: mirror_verify, fast sync, "
+         "window_admit, every windowed replay's and resume's gate, and "
+         "live_sync_erc20_100k's mirror after its windowed import",
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
          "bound_by": k4_bound_by, "library_ms": None},
         {"name": "exec_validate_k6", "route": "cuda",

@@ -105,6 +105,8 @@ class DbConfig:
 class SyncConfig:
     """Replay/sync knobs (KhipuConfig.Sync)."""
 
+    # regular sync's backward branch walk cap (RegularSyncService.scala)
+    block_resolving_depth: int = 20
     # parallel execution of a block's transactions: the scheduled
     # executor (below) for Byzantium+ blocks, else the optimistic pass
     # with its serial merge (P1). False = the serial fold
@@ -130,6 +132,12 @@ class SyncConfig:
     # host hashes). Host keccak is native C, so with device="cpu" this
     # knob is a no-op
     sender_batch_hash: bool = True
+    # fast-sync pivot choice (FastSyncService.scala:184-273 role)
+    min_peers_to_choose_pivot: int = 5
+    pivot_block_offset: int = 500  # pivot = median(best) - offset
+    # node-download scheduler (processDownload:537-667 role)
+    nodes_per_request: int = 50
+    peer_request_timeout: float = 5.0
     commit_window_blocks: int = 1  # blocks batched per device trie commit
     # windows sealed-but-uncollected allowed in flight: the driver
     # seals window N+1 (cross-window refs ride the dispatch as

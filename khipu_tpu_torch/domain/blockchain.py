@@ -142,6 +142,9 @@ class Blockchain:
         for i, tx in enumerate(block.body.transactions):
             s.transaction_storage.put(tx.hash, n, i)
         s.app_state.best_block_number = n
+        # the block is durable once this returns (a no-op where the
+        # engine writes through)
+        s.flush_writes()
 
     def remove_block(self, block_hash: bytes) -> None:
         """removeBlock:322 (reorg orphaning)."""

@@ -563,6 +563,7 @@ def _execute_scheduled(
         EXEC_GAUGES,
         LEARNER,
         Misprediction,
+        Step,
         Template,
         _apply_rules,
         _arg_words,
@@ -574,6 +575,18 @@ def _execute_scheduled(
     plan = plan_block(
         txs, senders, header.beneficiary, merged.get_code_hash, LEARNER
     )
+    if merged.touched:
+        # touch marks set before the first transaction (the DAO drain's
+        # transfers in make_world): every other executor sweeps them at
+        # the end of the block's first transaction, and a fast or call
+        # batch drops marks without a sweep. So tx 0 runs first, alone,
+        # through the interpreter, whose end-of-tx sweep covers them
+        # exactly as there. It has no predecessor, so running it ahead
+        # of its batch keeps every precedence the plan holds
+        plan.steps = [Step("residue", [0])] + [
+            Step(step.kind, [i for i in step.indices if i != 0])
+            for step in plan.steps if step.indices != [0]
+        ]
     stats.conflict_count += plan.conflicted
     trusted_used: Set[bytes] = set()
 

@@ -6,9 +6,10 @@ pending txs, fill the roots), the miner searches a nonce whose
 hashimoto result satisfies the difficulty bound, then the block is
 saved and the mined txs leave the pool (RegularSyncService.scala:419).
 
-The port's copy of ``khipu_tpu.mining``. Pushing sealed blocks to peers
-waits for the network layer (ROADMAP A9): a ``peer_manager`` raises
-``NotImplementedError``.
+The port's copy of ``khipu_tpu.mining``. With a ``peer_manager`` each
+sealed block goes to peers through ``regular_sync.propagate_block``
+(the full block to ceil(sqrt(peers)) of them, the hash announce to the
+rest).
 """
 
 from __future__ import annotations
@@ -38,13 +39,6 @@ class Miner:
         use_dataset: bool = False,
         dag_dir: Optional[str] = None,
     ):
-        # with a peer manager, every sealed block would be pushed to
-        # peers (BroadcastNewBlocks role, RegularSyncService.scala:306)
-        if peer_manager is not None:
-            raise NotImplementedError(
-                "broadcasting mined blocks needs the network layer, which "
-                "is not ported yet (ROADMAP A9)"
-            )
         self.blockchain = blockchain
         self.config = config
         self.tx_pool = tx_pool
@@ -63,6 +57,9 @@ class Miner:
                 ethash_cache, full_size, cache_dir=dag_dir
             )
         self._builder = ChainBuilder.from_head(blockchain, config)
+        # with a peer manager, every sealed block is pushed to peers
+        # (BroadcastNewBlocks role, RegularSyncService.scala:306)
+        self.peer_manager = peer_manager
 
     def _select_txs(self) -> List:
         """Pending txs ordered (sender, nonce); invalid ones dropped at
@@ -125,4 +122,9 @@ class Miner:
             self._builder.head = sealed
             block = sealed
         self.tx_pool.remove_mined(block.body.transactions)
+        if self.peer_manager is not None:
+            from khipu_tpu_torch.sync.regular_sync import propagate_block
+
+            td = self.blockchain.get_total_difficulty(block.number) or 0
+            propagate_block(self.peer_manager, block, td)
         return block

@@ -1,9 +1,11 @@
 """Build the host library (``csrc/*.cc``) with g++ and the RLP extension
 (``csrc_ext/rlp_ext.c``) with gcc, at first use.
 
-The library holds the host's scalar Keccak sponge (``keccak.cc``), the
-secp256k1 double-scalar multiplication (``secp256k1.cc``), the EVM
-interpreter core (``evm.cc``) and the append-log store (``store.cc``).
+The library holds the host's scalar Keccak sponge (``keccak.cc``, with
+the streaming form the RLPx frame MAC runs), the secp256k1
+double-scalar multiplication (``secp256k1.cc``), the EVM interpreter
+core (``evm.cc``), the append-log store (``store.cc``) and the forward
+AES of the RLPx transport and the keyfiles (``aes.cc``).
 The extension is the CPython RLP codec. Both go into
 ``khipu_tpu_torch/_build/`` under names keyed by a hash of the flags and
 the sources (the extension's also by the interpreter's ``EXT_SUFFIX``,
@@ -103,7 +105,7 @@ def _compile(tool: str, flags: List[str], srcs: List[Path], out: Path) -> None:
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    """Argument types of the Keccak, secp256k1 and store entry points;
+    """Argument types of the Keccak, AES, secp256k1 and store entry points;
     the EVM's are bound by ``evm/native_vm.py`` beside its result
     struct."""
     p, i, u32, u64 = (ctypes.c_char_p, ctypes.c_int, ctypes.c_uint32,
@@ -115,6 +117,19 @@ def _bind(lib: ctypes.CDLL) -> None:
         i, p, ctypes.POINTER(ctypes.c_uint64), u64, p, i,
     ]
     lib.khipu_keccak_batch.restype = None
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    lib.khipu_keccak_absorb.argtypes = [u64p, p, u64]
+    lib.khipu_keccak_absorb.restype = None
+    lib.khipu_keccak_peek.argtypes = [u64p, p, u64, p]
+    lib.khipu_keccak_peek.restype = None
+    lib.khipu_aes_ctx_size.argtypes = []
+    lib.khipu_aes_ctx_size.restype = u64
+    lib.khipu_aes_init.argtypes = [p, p, i, p]
+    lib.khipu_aes_init.restype = i
+    lib.khipu_aes_ctr.argtypes = [p, p, u64, p]
+    lib.khipu_aes_ctr.restype = None
+    lib.khipu_aes_ecb.argtypes = [p, p, p]
+    lib.khipu_aes_ecb.restype = None
     lib.khipu_ec_mul_add.argtypes = [p] * 8
     lib.khipu_ec_mul_add.restype = i
     lib.khipu_ecdsa_recover_batch.argtypes = [i] + [p] * 5

@@ -10,6 +10,8 @@
 // Exposed C ABI (ctypes, see khipu_tpu_torch/native/keccak.py):
 //   khipu_keccak(rate_bytes, in, in_len, out, out_len)
 //   khipu_keccak_batch(rate_bytes, msgs, offsets, n, out, out_len)
+//   khipu_keccak_absorb(state, blocks, nblocks)      streaming sponge
+//   khipu_keccak_peek(state, tail, tail_len, out32)  digest, state kept
 
 #include <cstdint>
 #include <cstring>
@@ -104,5 +106,37 @@ void khipu_keccak_batch(int rate, const uint8_t* msgs,
   for (uint64_t i = 0; i < n; ++i)
     keccak(rate, msgs + offsets[i], offsets[i + 1] - offsets[i],
            out + i * out_len, out_len);
+}
+
+// The RLPx frame MAC's running Keccak-256 (rlpx.py _IncrementalKeccak):
+// absorb whole 136-byte blocks into a caller-owned 25-lane state, and
+// read the digest of state + unabsorbed tail without finalizing it.
+void khipu_keccak_absorb(uint64_t* state, const uint8_t* blocks,
+                         uint64_t nblocks) {
+  for (uint64_t b = 0; b < nblocks; ++b, blocks += 136) {
+    for (int i = 0; i < 17; ++i) {
+      uint64_t w;
+      std::memcpy(&w, blocks + 8 * i, 8);
+      state[i] ^= w;
+    }
+    keccak_f1600(state);
+  }
+}
+
+void khipu_keccak_peek(const uint64_t* state, const uint8_t* tail,
+                       uint64_t tail_len, uint8_t* out32) {
+  uint64_t a[25];
+  std::memcpy(a, state, sizeof(a));
+  uint8_t block[136] = {0};
+  std::memcpy(block, tail, tail_len);  // tail_len < 136
+  block[tail_len] = 0x01;
+  block[135] |= 0x80;
+  for (int i = 0; i < 17; ++i) {
+    uint64_t w;
+    std::memcpy(&w, block + 8 * i, 8);
+    a[i] ^= w;
+  }
+  keccak_f1600(a);
+  std::memcpy(out32, a, 32);
 }
 }

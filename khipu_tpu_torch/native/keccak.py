@@ -1,4 +1,5 @@
-"""ctypes bindings for the host Keccak sponge (csrc/keccak.cc)."""
+"""ctypes bindings for the host Keccak sponge (csrc/keccak.cc), with the
+streaming form the RLPx frame MAC runs."""
 
 from __future__ import annotations
 
@@ -41,3 +42,29 @@ def keccak256_batch(messages: Sequence[bytes]) -> List[bytes]:
     load_library().khipu_keccak_batch(_RATE_256, blob, offsets, n, out, 32)
     raw = out.raw
     return [raw[i * 32:(i + 1) * 32] for i in range(n)]
+
+
+class IncrementalKeccak:
+    """Streaming Keccak-256: ``update`` absorbs, ``digest`` pads a copy
+    of the state so the stream goes on (the RLPx MAC contract)."""
+
+    __slots__ = ("_lib", "state", "buffer")
+
+    def __init__(self):
+        self._lib = load_library()
+        self.state = (ctypes.c_uint64 * 25)()
+        self.buffer = b""
+
+    def update(self, data: bytes) -> None:
+        buf = self.buffer + bytes(data)
+        whole = len(buf) - len(buf) % _RATE_256
+        if whole:
+            self._lib.khipu_keccak_absorb(self.state, buf[:whole],
+                                          whole // _RATE_256)
+        self.buffer = buf[whole:]
+
+    def digest(self) -> bytes:
+        out = ctypes.create_string_buffer(32)
+        self._lib.khipu_keccak_peek(self.state, self.buffer,
+                                    len(self.buffer), out)
+        return out.raw

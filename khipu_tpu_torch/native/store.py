@@ -40,6 +40,9 @@ class _NativeStore:
         prefix = os.path.join(data_dir, topic)
         self._lib = lib
         self._lock = threading.RLock()
+        # appends since the last flush: stdio may still hold them, and a
+        # process death would lose them
+        self._dirty = False
         self._handle = lib.kstore_open(
             prefix.encode(), 1 if content_addressed else 0
         )
@@ -73,11 +76,17 @@ class _NativeStore:
                 raise NativeStoreError(
                     "append failed (disk full / IO error); log rolled back"
                 )
+            self._dirty = True
 
     def flush(self) -> None:
+        """Hand the buffered appends to the OS (fflush, no fsync) and
+        checkpoint the index header: what a process death leaves on
+        disk then holds every record put so far. A store with nothing
+        appended since its last flush skips the calls."""
         with self._lock:
-            if self._handle is not None:
+            if self._handle is not None and self._dirty:
                 self._lib.kstore_flush(self._handle)
+                self._dirty = False
 
     @property
     def count(self) -> int:
@@ -98,6 +107,7 @@ class _NativeStore:
             if self._handle is not None:
                 self._lib.kstore_close(self._handle)
                 self._handle = None
+                self._dirty = False
 
     def __del__(self):
         try:
@@ -133,6 +143,10 @@ class NativeNodeDataSource(NodeDataSource):
     def flush(self) -> None:
         self._store.flush()
 
+    # appends sit in a stdio buffer until ``flush``:
+    # ``Storages.flush_writes`` flushes the sources that say so
+    buffered = True
+
     def stop(self) -> None:
         self._store.close()
 
@@ -165,6 +179,8 @@ class NativeKeyValueDataSource(KeyValueDataSource):
 
     def flush(self) -> None:
         self._store.flush()
+
+    buffered = True
 
     def stop(self) -> None:
         self._store.close()
@@ -223,6 +239,8 @@ class NativeBlockDataSource(BlockDataSource):
 
     def flush(self) -> None:
         self._store.flush()
+
+    buffered = True
 
     def stop(self) -> None:
         self._store.close()

@@ -114,7 +114,9 @@ class Storages:
         if self._window_journal is None:
             from khipu_tpu_torch.sync.journal import WindowJournal
 
-            self._window_journal = WindowJournal(self.journal_source)
+            self._window_journal = WindowJournal(
+                self.journal_source, barrier=self.flush_writes
+            )
         return self._window_journal
 
     @property
@@ -185,6 +187,18 @@ class Storages:
             fl = getattr(src, "flush", None)
             if fl:
                 fl()
+
+    def flush_writes(self) -> None:
+        """Make every write so far survive a process death: a source
+        marked ``buffered`` (the native engine's, which keep each topic's
+        newest appends in a stdio buffer) hands them to the OS (no fsync:
+        the guarantee is against the process dying, as for the other
+        engines). The sqlite and kesque sources write through on every
+        put and are not marked. The commit journal calls this before a
+        commit mark, and ``Blockchain.save_block`` after each block."""
+        for src in self._all_sources():
+            if getattr(src, "buffered", False):
+                src.flush()
 
     def stop(self) -> None:
         """Flush, then close every source (a persistent engine's files

@@ -130,8 +130,11 @@ class WindowJournal:
     ``flush`` after the intent is the fsync barrier where the engine
     has one)."""
 
-    def __init__(self, source):
+    def __init__(self, source, barrier=None):
         self.source = source
+        # makes every topic's writes so far durable before a commit mark
+        # (``Storages.flush_writes``); None for a bare journal
+        self._barrier = barrier
         self._lock = threading.Lock()
         # registry pull collector, replace-by-key: the newest journal
         # (tests build hundreds) owns the khipu_journal_depth sample
@@ -233,7 +236,11 @@ class WindowJournal:
     def log_commit(self, seq: int) -> None:
         """The window's blocks are saved and best advanced — or
         recovery settled the intent (repair OR rollback); either way
-        the intent needs no further attention."""
+        the intent needs no further attention. The blocks, state
+        nodes and app state the window wrote reach the OS first: a
+        commit mark must never outlive what it marks."""
+        if self._barrier is not None:
+            self._barrier()
         with self._lock:
             self.source.put(_seq_key(_COMMIT_PREFIX, seq), b"\x01")
             self._flush()

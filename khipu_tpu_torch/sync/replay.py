@@ -98,6 +98,12 @@ PIPELINE_GAUGES = REGISTRY.gauge_group("khipu_pipeline", {
 }, help="window-pipeline state (sync/replay.py)")
 
 
+class WindowNeedsByzantium(ValueError):
+    """A windowed replay met a pre-Byzantium block (its receipts embed
+    per-tx roots the window cannot produce); nothing of that window was
+    persisted, so a caller may import it block by block."""
+
+
 class CollectorDied(RuntimeError):
     """A background stage thread is no longer alive but never recorded
     a failure — a death mid-job. Detected by the timed liveness checks
@@ -862,7 +868,7 @@ class ReplayDriver:
                 )
                 if not for_block(header.number,
                                  self.config.blockchain).byzantium:
-                    raise ValueError(
+                    raise WindowNeedsByzantium(
                         "window commits need Byzantium receipts "
                         "(pre-Byzantium receipts embed per-tx roots)"
                     )

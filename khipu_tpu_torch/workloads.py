@@ -28,6 +28,7 @@ card).
 
 from __future__ import annotations
 
+import functools
 import gzip
 from typing import Dict, List, Tuple
 
@@ -480,36 +481,49 @@ def _erc20_blocks(cfg, n_blocks, txs_per_block, holders, extra_alloc,
                   diverge_at=None):
     """``erc20_chain``'s blocks; transfer blocks from index
     ``diverge_at`` on are the fork's (shifted amounts, FORK_COINBASE)."""
+    from khipu_tpu_torch.domain.transaction import Transaction, sign_transaction
+
+    keys, addrs = _erc20_senders(txs_per_block)
+    alloc = dict(extra_alloc or {})
+    alloc.update({a: 10**24 for a in addrs})
+    builder, spec = _builder(cfg, alloc)
+    deploy = Transaction(0, 10**9, 500_000, None, 0, payload=ERC20_INIT)
+    blocks = [builder.add_block([sign_transaction(deploy, keys[0],
+                                                  chain_id=1)],
+                                coinbase=COINBASE)]
+    for n in range(n_blocks):
+        forked = diverge_at is not None and n >= diverge_at
+        txs = erc20_transfers(n, txs_per_block, holders, forked)
+        blocks.append(builder.add_block(
+            txs, coinbase=FORK_COINBASE if forked else COINBASE))
+    return builder, spec, blocks
+
+
+@functools.lru_cache(maxsize=4)
+def _erc20_senders(txs_per_block: int):
+    return replay_keys(txs_per_block, seed_base=501)
+
+
+def erc20_transfers(n: int, txs_per_block: int, holders: int,
+                    forked: bool = False):
+    """The signed token transfers of ``erc20_chain``'s transfer block
+    ``n`` (0-based, after the deploy block): one a sender, each at its
+    next nonce. ``erc20_transfers(k, ...)`` for a chain of ``k`` transfer
+    blocks is the block a miner would seal next."""
     from khipu_tpu_torch.domain.transaction import (
         Transaction,
         contract_address,
         sign_transaction,
     )
 
-    keys, addrs = replay_keys(txs_per_block, seed_base=501)
-    alloc = dict(extra_alloc or {})
-    alloc.update({a: 10**24 for a in addrs})
-    builder, spec = _builder(cfg, alloc)
+    keys, addrs = _erc20_senders(txs_per_block)
     token = contract_address(addrs[0], 0)
-    holder_addrs = [(0xE20E2000 + i).to_bytes(20, "big")
-                    for i in range(holders)]
-    deploy = Transaction(0, 10**9, 500_000, None, 0, payload=ERC20_INIT)
-    blocks = [builder.add_block([sign_transaction(deploy, keys[0],
-                                                  chain_id=1)],
-                                coinbase=COINBASE)]
-    nonces = [1] + [0] * (txs_per_block - 1)
-    for n in range(n_blocks):
-        forked = diverge_at is not None and n >= diverge_at
-        txs = []
-        for j in range(txs_per_block):
-            rcpt = holder_addrs[(j + n * 7) % holders]
-            amount = 1_000 + 13 * j + n + (FORK_AMOUNT_SHIFT if forked
-                                           else 0)
-            payload = rcpt.rjust(32, b"\x00") + amount.to_bytes(32, "big")
-            tx = Transaction(nonces[j], 10**9, 100_000, token, 0,
-                             payload=payload)
-            txs.append(sign_transaction(tx, keys[j], chain_id=1))
-            nonces[j] += 1
-        blocks.append(builder.add_block(
-            txs, coinbase=FORK_COINBASE if forked else COINBASE))
-    return builder, spec, blocks
+    txs = []
+    for j in range(txs_per_block):
+        rcpt = (0xE20E2000 + (j + n * 7) % holders).to_bytes(20, "big")
+        amount = 1_000 + 13 * j + n + (FORK_AMOUNT_SHIFT if forked else 0)
+        payload = rcpt.rjust(32, b"\x00") + amount.to_bytes(32, "big")
+        nonce = n + (1 if j == 0 else 0)  # sender 0 deployed the token
+        tx = Transaction(nonce, 10**9, 100_000, token, 0, payload=payload)
+        txs.append(sign_transaction(tx, keys[j], chain_id=1))
+    return txs

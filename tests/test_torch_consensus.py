@@ -369,7 +369,44 @@ def test_miner_three_sealed_blocks_equal(tmp_path, monkeypatch):
 
 
 def test_miner_refuses_a_peer_manager():
+    """The network layer is ported: a Miner no longer refuses a peer
+    manager, and pushes each sealed block through ``propagate_block``
+    (NewBlock to ceil(sqrt(peers)) live peers, the hash announce to the
+    rest). The full loopback case is ``test_torch_live_sync.py``."""
+    from khipu_tpu_torch.config import fixture_config
+    from khipu_tpu_torch.domain.blockchain import Blockchain, GenesisSpec
     from khipu_tpu_torch.mining import Miner
+    from khipu_tpu_torch.network.messages import (
+        ETH_OFFSET,
+        NEW_BLOCK,
+        NEW_BLOCK_HASHES,
+        decode_new_block,
+    )
+    from khipu_tpu_torch.storage.storages import Storages
+    from khipu_tpu_torch.sync.chain_builder import ChainBuilder
+    from khipu_tpu_torch.txpool import PendingTransactionsPool
 
-    with pytest.raises(NotImplementedError, match="A9"):
-        Miner(None, None, None, b"\xaa" * 20, peer_manager=object())
+    class _Peer:
+        alive = True
+
+        def __init__(self):
+            self.sent = []
+
+        def send(self, code, body):
+            self.sent.append((code, body))
+
+    class _Manager:
+        peers = [_Peer() for _ in range(4)]
+
+    cfg = fixture_config(chain_id=1)
+    bc = Blockchain(Storages(), cfg)
+    ChainBuilder(bc, cfg, GenesisSpec(alloc={b"\x01" * 20: 10**21}))
+    manager = _Manager()
+    block = Miner(bc, cfg, PendingTransactionsPool(), b"\xaa" * 20,
+                  peer_manager=manager).mine_next()
+    codes = [p.sent[0][0] for p in manager.peers]
+    assert codes == [ETH_OFFSET + NEW_BLOCK] * 2 + [
+        ETH_OFFSET + NEW_BLOCK_HASHES] * 2
+    pushed, td = decode_new_block(manager.peers[0].sent[0][1])
+    assert pushed.hash == block.hash == bc.get_hash_by_number(1)
+    assert td == bc.get_total_difficulty(1)

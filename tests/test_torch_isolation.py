@@ -31,6 +31,8 @@ from khipu_tpu_torch.sync.fast_sync import FastSyncStateStorage, StateSyncer
 from khipu_tpu_torch.sync import adaptive
 from khipu_tpu_torch.sync.adaptive import AdaptiveCommitController, probe_backend
 from khipu_tpu_torch.sync.prefetch import recover_block_senders
+from khipu_tpu_torch.sync.fast_sync_service import FastSyncService
+from khipu_tpu_torch.sync.regular_sync import RegularSyncService
 from khipu_tpu_torch.sync.reorg import ReorgManager
 from khipu_tpu_torch.sync.replay import ReplayDriver
 from khipu_tpu_torch.trie import bulk, deferred, fixpoint_cuda, fused
@@ -56,7 +58,11 @@ want = {"khipu_tpu_torch.consensus", "khipu_tpu_torch.consensus.ethash",
         "khipu_tpu_torch.sync.reorg", "khipu_tpu_torch.txpool",
         "khipu_tpu_torch.mining", "khipu_tpu_torch.storage.segment",
         "khipu_tpu_torch.storage.kesque", "khipu_tpu_torch.storage.known_nodes",
-        "khipu_tpu_torch.storage.remote"}
+        "khipu_tpu_torch.storage.remote", "khipu_tpu_torch.network.peer",
+        "khipu_tpu_torch.network.rlpx", "khipu_tpu_torch.network.discovery",
+        "khipu_tpu_torch.sync.regular_sync",
+        "khipu_tpu_torch.sync.fast_sync_service", "khipu_tpu_torch.keystore",
+        "khipu_tpu_torch.native.aes", "khipu_tpu_torch.base.aes"}
 print(len(names), sorted(want - set(names)) + bad)
 """
 
@@ -147,13 +153,16 @@ def _session():
     lambda: fused.fused_exec_validate([0], [0], [1], [1]),
     lambda: adaptive.exec_device_allowed(SyncConfig(exec_device=True)),
     lambda: ReorgManager(_chain(), workloads.replay_config()),
+    lambda: RegularSyncService(_chain(), workloads.replay_config(), None),
+    lambda: FastSyncService(_chain(), workloads.replay_config(), None),
 ], ids=["batch", "batch-cuda", "fixed", "device_hasher", "bulk_fused",
         "bulk_levels", "finalize_fused", "finalize_levels", "commit",
         "batch_commit", "fused_submit", "device_fixed", "device_fixed_words",
         "mirror", "state_syncer", "replay_driver", "replay_device_commit",
         "genesis_on_device", "sender_batch_hash", "replay_windowed",
         "window_committer_fused", "adaptive_controller", "adaptive_probe",
-        "exec_validate", "exec_device_allowed", "reorg_manager"])
+        "exec_validate", "exec_device_allowed", "reorg_manager",
+        "regular_sync", "fast_sync_service"])
 def test_entry_points_raise_without_card(no_card, call):
     with pytest.raises(RuntimeError, match="is_available"):
         call()
@@ -293,6 +302,20 @@ def test_native_sources_include_nothing_of_the_reference():
                 assert "khipu" not in inc, (src, inc)
         assert "khipu_tpu/" not in src.read_text().replace(
             "khipu_tpu_torch/", ""), src
+
+
+def test_port_never_imports_cryptography():
+    """One AES path: the host library's. No module of the port imports
+    the ``cryptography`` package, not even as a fallback."""
+    import re
+
+    root = os.path.join(REPO, "khipu_tpu_torch")
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                text = open(os.path.join(dirpath, f)).read()
+                assert not re.search(
+                    r"^\s*(from|import)\s+cryptography\b", text, re.M), f
 
 
 def test_ragged_mode_switch():

@@ -9,9 +9,9 @@ with the driver's device commit (the plain versions of the card path),
 the JAX package on its host path; best blocks, tip hashes, state roots,
 recovery reports and pools must be equal.
 
-The TD rule and the regular-sync tests wait for the sync service
-(ROADMAP A9); the filter retractions and the serving invariants for the
-JSON-RPC and serving planes (A10).
+The TD rule and the regular-sync cases are in
+``test_torch_live_sync.py``; the filter retractions and the serving
+invariants wait for the JSON-RPC and serving planes (ROADMAP A10).
 """
 
 import dataclasses
