@@ -128,6 +128,23 @@ every recorded window's shape and timed there.
      fast or call batch the replay ran; nodes, receipts and lanes equal
      the CPU replay's with ``exec_device`` off
 
+16b. traced_replay_erc20_w8: 15's chain again with the observability
+     plane on (``ObservabilityConfig(enabled=True, ledger_enabled=True,
+     journey_enabled=True)``): 15's gates and its chain, block by block;
+     every block's lifecycle complete with ``window.pack`` and
+     ``fused.dispatch``, the four stage spans on their stage threads
+     under their window's ``window.seal``, no nesting violation; the
+     ledger's ``seal.upload`` bytes equal to the tensors the seal stage
+     uploaded and its ``mirror.get`` bytes to the reads, both counted
+     apart; a window report for every block; every transaction's journey
+     ingress -> seal -> journal.intent -> durable; the Chrome trace read
+     back with one flow pair a stage span; a verdict for every seal
+     sub-phase of every window. The line gives traced over untraced
+     blocks/s (not gated) and the cost model's floors, calibrated here:
+     the median blocking 32 B device-to-host round trip, the pinned
+     host-to-device rate at the largest window upload, K1f's kernel-only
+     hash rate at 1M x 576 (phase 2) and the op rate of the bounds
+
 17-19 give their lanes (residue, checked and vectorized calls,
 vectorized transfers, conflicts, mispredictions) beside the serial
 execution lines of the same process. Each process-global template
@@ -303,6 +320,28 @@ def card_line() -> str:
 def check(cond, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+@contextmanager
+def span_totals():
+    """Record every thread's spans on the process tracer for the block;
+    the yielded dict then holds ``{name: [count, seconds]}``. Fails if
+    the ring dropped a span (the totals would be short)."""
+    from khipu_tpu_torch.observability.trace import tracer
+
+    tracer.reset()
+    tracer.enable(capacity=1 << 20)
+    totals = {}
+    try:
+        yield totals
+    finally:
+        tracer.disable()
+    check(tracer.dropped == 0, f"the span ring dropped {tracer.dropped}")
+    for s in tracer.snapshot():
+        tot = totals.setdefault(s.name, [0, 0.0])
+        tot[0] += 1
+        tot[1] += s.duration
+    tracer.reset()
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -1018,7 +1057,8 @@ def reachable(storages, root):
     return report, tuple(s.nodes for s in sinks)
 
 
-def windowed_phases(args, torch, dev, launches, chains) -> tuple:
+def windowed_phases(args, torch, dev, launches, chains,
+                    k1f_hashes_per_s=None) -> tuple:
     """Phases 14-16: the windowed, pipelined replay on the card —
     ``ReplayDriver(..., device_commit=True)`` at ``commit_window_blocks``
     16 (the transfer chain) and 8 (the ERC-20 chain, and that chain over
@@ -1071,9 +1111,9 @@ def windowed_phases(args, torch, dev, launches, chains) -> tuple:
         recorded, submit = [], fused.fused_submit
 
         def recording(to_resolve, deps, prefix, device=None, depth=None,
-                      ext=None, admit_live=None):
+                      ext=None, admit_live=None, span_tags=None):
             job = submit(to_resolve, deps, prefix, device, depth, ext,
-                         admit_live)
+                         admit_live, span_tags)
             # the window's ExtRows tile is filled by the scan
             recorded.append((to_resolve, ext.tile("cpu").numpy().copy(),
                              dict(ext.pos)))
@@ -1257,6 +1297,12 @@ def windowed_phases(args, torch, dev, launches, chains) -> tuple:
         lines[name] = line
         del ref, recorded, kept
 
+    # the same chain with the observability plane on, then the cost
+    # model's calibration
+    emit(traced_phase(torch, dev, card_run, erc20_w8,
+                      lines["replay_erc20_w8"], ref_nodes["replay_erc20_w8"],
+                      k1f_hashes_per_s))
+
     # the Python-VM oracle: replay_erc20_w8's chain again with every frame
     # on evm/vm.py; roots, receipts and reachable nodes equal the native
     # run's (the measured one above, ``mem``)
@@ -1420,6 +1466,258 @@ def windowed_phases(args, torch, dev, launches, chains) -> tuple:
           "addresses"})
     del ref
     return k5_out, w8
+
+
+STAGE_THREADS = {"window.pack": "window-seal",
+                 "window.collect": "window-collect",
+                 "window.persist": "window-persist",
+                 "window.save": "window-save"}
+
+
+def traced_phase(torch, dev, card_run, erc20_w8, untraced, ref_nodes,
+                 k1f_hashes_per_s) -> dict:
+    """traced_replay_erc20_w8: replay_erc20_w8's chain (17 blocks, 3,201
+    transactions, window 8, device commit) with the tracer, the movement
+    ledger and the journey board on (``ObservabilityConfig``), held to
+    the untraced run's gates and chain (``erc20_w8``'s kept run), then
+    the plane's own gates: every block's lifecycle, the stage spans on
+    the stage threads under their window's seal, no nesting violation;
+    ``seal.upload`` bytes equal to the tensors the seal stage uploaded
+    and ``mirror.get`` bytes to the reads, counted apart from the
+    ledger; a window report for every block; every transaction's
+    journey ingress -> seal -> journal.intent -> durable; a Chrome trace
+    that loads back with one flow pair a stage span; a verdict for every
+    seal sub-phase of every window. Then ``calibrate_floors``."""
+    from khipu_tpu_torch import workloads
+    from khipu_tpu_torch.config import ObservabilityConfig
+    from khipu_tpu_torch.observability import (
+        costmodel,
+        export,
+        recorder,
+        trace,
+    )
+    from khipu_tpu_torch.observability.journey import JOURNEY
+    from khipu_tpu_torch.observability.profiler import D2H, H2D, LEDGER
+    from khipu_tpu_torch.storage import device_mirror
+    from khipu_tpu_torch.trie import fused
+
+    name = "traced_replay_erc20_w8"
+    spec, blocks, builder, ref, mem = erc20_w8
+    # the pinned ring holds every journey that outlives the slow-tail
+    # budget (a window's transactions wait a window and more for their
+    # durable page)
+    cfg = dataclasses.replace(
+        workloads.replay_config(commit_window_blocks=8),
+        observability=ObservabilityConfig(
+            enabled=True, ledger_enabled=True, journey_enabled=True,
+            journey_pinned_capacity=4096))
+    tracer = trace.tracer
+    tracer.reset()
+    LEDGER.reset()
+    JOURNEY.reset()
+    # the seal stage's uploads and the mirror's row reads, counted apart
+    # from the ledger while it is on
+    uploaded, gets = [], []
+    real_upload, real_fetch = (fused.upload_packed,
+                               device_mirror._ClassMirror.fetch_row)
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    def counting_upload(classes, plan, device):
+        real_upload(classes, plan, device)
+        if LEDGER.enabled:
+            uploaded.append(
+                sum(nbytes(c.enc) for c in classes)
+                + sum(nbytes(c.aidx) for c in classes if c.aidx is not None)
+                + sum(nbytes(t) for t in (plan.d_order, plan.d_level_ptr,
+                                          plan.d_tptr, plan.d_toff,
+                                          plan.d_tchild)))
+
+    def counting_fetch(self, key):
+        got = real_fetch(self, key)
+        if got is not None and LEDGER.enabled:
+            gets.append(4 * self.nwords)
+        return got
+
+    fused.upload_packed = counting_upload
+    device_mirror._ClassMirror.fetch_row = counting_fetch
+    kept = {}
+    try:
+        run = card_run(name, spec, blocks, 8, builder.blockchain, ref,
+                       cfg=cfg, nodes=ref_nodes, keep=kept)
+    finally:
+        fused.upload_packed = real_upload
+        device_mirror._ClassMirror.fetch_row = real_fetch
+        tracer.disable()
+        LEDGER.disable()
+        JOURNEY.disable()
+    t0 = time.perf_counter()
+    # the replay is unchanged: the untraced run's chain, block by block
+    chain, base = kept["chain"], mem["chain"]
+    for n in range(1, len(blocks) + 1):
+        check(chain.get_header_by_number(n).state_root
+              == base.get_header_by_number(n).state_root
+              and chain.storages.receipts_storage.get(n)
+              == base.storages.receipts_storage.get(n),
+              f"{name}: block {n}'s root or receipts != the untraced run's")
+    check(kept["nodes"] == mem["nodes"], f"{name}: reachable nodes != the "
+          "untraced run's")
+    spans = tracer.snapshot()
+    check(tracer.dropped == 0, f"{name}: the span ring dropped "
+          f"{tracer.dropped}")
+    by_id = {sp.sid: sp for sp in spans}
+    # lifecycle: every block, every required phase, the stage phases on
+    # their stage threads under their window's seal
+    for n in range(1, len(blocks) + 1):
+        rec = recorder.lifecycle(spans, n)
+        missing = [p for p in recorder.REQUIRED_PHASES
+                   + ("window.pack", "fused.dispatch")
+                   if p not in rec["phases"]]
+        check(rec["complete"] and not missing,
+              f"{name}: block {n}'s lifecycle lacks {missing}")
+    stage_spans = [sp for sp in spans if sp.name in STAGE_THREADS]
+    windows = sorted({sp.tags["block_lo"] for sp in stage_spans})
+    check(len(stage_spans) == 4 * len(windows) == 4 * run["windows"],
+          f"{name}: {len(stage_spans)} stage spans for {run['windows']} "
+          "windows")
+    for sp in stage_spans:
+        parent = by_id.get(sp.parent)
+        check(sp.thread_name == STAGE_THREADS[sp.name]
+              and parent is not None and parent.name == "window.seal"
+              and parent.tid != sp.tid
+              and parent.tags["block_lo"] == sp.tags["block_lo"],
+              f"{name}: {sp.name} of window {sp.tags['block_lo']} on "
+              f"{sp.thread_name}, parent {parent}")
+    bad_nesting = recorder.nesting_violations(spans)
+    check(bad_nesting == [], f"{name}: nesting {bad_nesting[:3]}")
+    # the ledger
+    events = LEDGER.events()
+    check(LEDGER.dropped == 0, f"{name}: the ledger dropped "
+          f"{LEDGER.dropped}")
+    totals = LEDGER.totals(events, include_host=True)
+    up_ledger = totals.get(("seal.upload", H2D), {}).get("bytes", 0)
+    check(up_ledger == sum(uploaded) > 0 and totals[("seal.upload", H2D)][
+        "count"] == len(uploaded) == run["device_windows"],
+          f"{name}: seal.upload H2D {up_ledger} B in the ledger, "
+          f"{sum(uploaded)} B in {len(uploaded)} uploads counted apart")
+    get_ledger = totals.get(("mirror.get", D2H), {}).get("bytes", 0)
+    check(get_ledger == sum(gets), f"{name}: mirror.get D2H {get_ledger} B "
+          f"in the ledger, {len(gets)} reads of {sum(gets)} B counted apart")
+    reports = {n: recorder.window_report(n, spans)
+               for n in range(1, len(blocks) + 1)}
+    check(all(r["found"] for r in reports.values()),
+          f"{name}: no window report for blocks "
+          f"{[n for n, r in reports.items() if not r['found']]}")
+    # journeys: every transaction, the serial executor's edge order
+    want_edges = ["ingress", "seal", "journal.intent", "durable"]
+    txs = [stx.hash for b in blocks for stx in b.body.transactions]
+    wrong = [h.hex() for h in txs
+             if JOURNEY.get(h) is None
+             or [e[1] for e in JOURNEY.get(h).events] != want_edges]
+    check(not wrong and len(txs) == run["txs"], f"{name}: {len(wrong)} of "
+          f"{len(txs)} journeys are not {want_edges}")
+    durable_ms = sorted(JOURNEY.latencies_ms("durable"))
+    # the Chrome trace: it loads back, one flow pair a stage span
+    with tempfile.TemporaryDirectory() as tmp:
+        path = export.dump_chrome_trace(os.path.join(tmp, "trace.json"),
+                                        spans)
+        trace_bytes = os.path.getsize(path)
+        with open(path) as f:
+            doc = json.load(f)
+    flows = {}
+    for ev in doc["traceEvents"]:
+        if ev["ph"] in ("s", "f") and ev["name"].startswith("window.seal→"):
+            flows.setdefault(ev["name"].split("→", 1)[1], []).append(ev["ph"])
+    for stage in STAGE_THREADS:
+        n_stage = sum(1 for sp in stage_spans if sp.name == stage)
+        check(sorted(flows.get(stage, [])) == ["f"] * n_stage
+              + ["s"] * n_stage, f"{name}: {stage} flows {flows.get(stage)}"
+              f" for {n_stage} spans")
+    # the cost model: a verdict for every seal sub-phase of every window
+    verdicts = {}
+    for lo in windows:
+        costs = costmodel.window_costs(lo, spans)
+        rows = costs.get("subphases", {})
+        check(costs["found"] and {"seal.pack", "seal.dispatch_build",
+                                  "seal.upload", "seal.rootcheck",
+                                  "seal.journal"} <= set(rows)
+              and all(r["bound"] in ("bytes-bound", "dispatch-bound",
+                                     "compute-bound", "fixed-overhead")
+                      for r in rows.values()),
+              f"{name}: window {lo}'s costs {costs}")
+        verdicts[lo] = {k: {"bound": r["bound"],
+                            "achieved_s": r["achieved_s"],
+                            "attainable_s": r["attainable_s"]}
+                        for k, r in rows.items()}
+    gates_s = time.perf_counter() - t0
+    upload_sizes = [ev.nbytes for ev in events
+                    if ev.site == "seal.upload" and ev.direction == H2D]
+    floors = calibrate_floors(torch, dev, max(upload_sizes),
+                              k1f_hashes_per_s)
+    by_site = {f"{site} {d}": {"bytes": v["bytes"], "count": v["count"],
+                               "seconds": v["seconds"]}
+               for (site, d), v in sorted(totals.items())}
+    line = {"phase": name, "window": 8, **run,
+            "untraced_blocks_per_s": untraced["blocks_per_s"],
+            "traced_over_untraced": run["blocks_per_s"]
+            / untraced["blocks_per_s"],
+            "spans": len(spans), "stage_spans": len(stage_spans),
+            "transfer_events": len(events), "ledger": by_site,
+            "seal_upload_bytes": sum(uploaded),
+            "mirror_get_reads": len(gets),
+            "journeys": len(txs),
+            "durable_ms_p50_p99": [durable_ms[len(durable_ms) // 2],
+                                   durable_ms[int(0.99 * (len(durable_ms)
+                                                          - 1))]],
+            "phase_breakdown_s": recorder.phase_breakdown(spans),
+            "seal_decomposition": recorder.seal_decomposition(spans),
+            "occupancy_from_spans": recorder.occupancy(spans),
+            "chrome_trace_bytes": trace_bytes,
+            "chrome_trace_events": len(doc["traceEvents"]),
+            "window_costs": verdicts, "gates_seconds": gates_s,
+            "floors": floors, "card": card_line()}
+    tracer.reset()
+    LEDGER.reset()
+    JOURNEY.reset()
+    return line
+
+
+def calibrate_floors(torch, dev, upload_bytes: int,
+                     k1f_hashes_per_s) -> dict:
+    """The cost model's floors on this card: the median blocking 32 B
+    device->host round trip (200 reps), the pinned host->device rate at
+    ``upload_bytes`` (the largest window upload of the traced replay;
+    CUDA events, median of 20), K1f's kernel-only hash rate at 1M x 576
+    B rows (phase 2's profiler time) and the op rate of the bounds."""
+    x = torch.zeros(8, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    x.cpu()
+    rtt = []
+    for _ in range(200):
+        t0 = time.perf_counter()
+        x.cpu()
+        rtt.append(time.perf_counter() - t0)
+    host = torch.empty(upload_bytes, dtype=torch.uint8, pin_memory=True)
+    card = torch.empty(upload_bytes, dtype=torch.uint8, device=dev)
+    card.copy_(host, non_blocking=True)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(20):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        card.copy_(host, non_blocking=True)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+    del host, card
+    return {"dispatch_floor_s": sorted(rtt)[len(rtt) // 2],
+            "h2d_bytes_per_s": upload_bytes / sorted(times)[len(times) // 2],
+            "h2d_probe_bytes": upload_bytes,
+            "kernel_hashes_per_s": k1f_hashes_per_s,
+            "element_ops_per_s": H100_INT32_OPS_PER_S,
+            "element_ops_per_block": SPONGE_OPS_PER_BLOCK}
 
 
 def ethash_phase() -> dict:
@@ -1645,7 +1943,7 @@ def recovery_phases(args, torch, dev, launches, w8, rec, base) -> None:
     fresh driver and resumed on the card; the same into the native
     engine, reopened; and journaled chain switches to a heavier branch,
     per block and windowed, with a kill at each reorg seam."""
-    from khipu_tpu_torch import observability, workloads
+    from khipu_tpu_torch import workloads
     from khipu_tpu_torch.chaos import (
         FaultPlan,
         FaultRule,
@@ -1843,15 +2141,13 @@ def recovery_phases(args, torch, dev, launches, w8, rec, base) -> None:
         mgr = ReorgManager(bc, cfg, driver=drv, txpool=pool)
         before = {k: WINDOW_GAUGES[k] for k in WINDOW_GAUGES}
         batches0 = prefetch.PREFETCH_GAUGES["device_batches"]
-        observability.SPAN_TOTALS.clear()
-        observability.enable()
-        launches.zero()
-        t0 = time.perf_counter()
-        adopted = mgr.switch(ancestor, fresh(fork[ancestor:]))
-        torch.cuda.synchronize()
-        switch_s = time.perf_counter() - t0
-        observability.enable(False)
-        spans = {k: v[1] for k, v in observability.SPAN_TOTALS.items()
+        with span_totals() as totals:
+            launches.zero()
+            t0 = time.perf_counter()
+            adopted = mgr.switch(ancestor, fresh(fork[ancestor:]))
+            torch.cuda.synchronize()
+            switch_s = time.perf_counter() - t0
+        spans = {k: v[1] for k, v in totals.items()
                  if k.startswith("reorg.")}
         windowed_adopt = branch >= window
         path = launches.read(name, ("k5",) if windowed_adopt else ("k1r",))
@@ -2021,7 +2317,6 @@ def kesque_phases(args, torch, dev, launches, w8, rec, fs100k) -> None:
 
     import numpy as np
 
-    from khipu_tpu_torch import observability
     from khipu_tpu_torch.base.keccak import keccak256
     from khipu_tpu_torch.chaos import (
         FaultPlan,
@@ -2344,17 +2639,15 @@ def kesque_phases(args, torch, dev, launches, w8, rec, fs100k) -> None:
         source_s = time.perf_counter() - t0
         manifest = src.list_segments()
         target = Storages("kesque", os.path.join(tmp, "ingest_dst"))
-        observability.SPAN_TOTALS.clear()
-        observability.enable()
-        launches.zero()
-        t0 = time.perf_counter()
-        report = segment_snapshot_ingest(target, src.list_segments,
-                                         src.read_chunk, target_root=root,
-                                         workers=4, chunk_bytes=1 << 20)
-        ingest_s = time.perf_counter() - t0
-        observability.enable(False)
+        with span_totals() as totals:
+            launches.zero()
+            t0 = time.perf_counter()
+            report = segment_snapshot_ingest(
+                target, src.list_segments, src.read_chunk,
+                target_root=root, workers=4, chunk_bytes=1 << 20)
+            ingest_s = time.perf_counter() - t0
         path = launches.read(name, ())
-        stream_s = observability.SPAN_TOTALS["fastsync.segment_ingest"][1]
+        stream_s = totals["fastsync.segment_ingest"][1]
         check(report.records == n_nodes and report.corrupt_frames == 0
               and report.segments == len(manifest), f"{name}: {report}")
         check(report.missing == 0 and report.corrupt_nodes == 0
@@ -2447,7 +2740,7 @@ def live_sync_phase(args, torch, dev, launches, chain100k) -> dict:
     content checks + the push's flush levels + the sender batches, K5 =
     2 device windows and no host window, mirror verify 0, no fall-back
     log line."""
-    from khipu_tpu_torch import observability, workloads
+    from khipu_tpu_torch import workloads
     from khipu_tpu_torch.base import aes as aes_oracle
     from khipu_tpu_torch.base.secp256k1 import privkey_to_pubkey
     from khipu_tpu_torch.domain.blockchain import Blockchain
@@ -2578,16 +2871,14 @@ def live_sync_phase(args, torch, dev, launches, chain100k) -> dict:
 
         svc.choose_pivot = timed("pivot", choose_and_keep)
         svc._backfill_blocks = timed("backfill", svc._backfill_blocks)
-        observability.SPAN_TOTALS.clear()
-        observability.enable()
-        launches.zero()
-        t0 = time.perf_counter()
-        state = svc.run()
-        torch.cuda.synchronize()
-        fast_s = time.perf_counter() - t0
-        fast = launches.read(f"{name} fast sync", ("k1r",))
-        verify_calls = observability.SPAN_TOTALS["fastsync.verify"][0]
-        observability.enable(False)
+        with span_totals() as totals:
+            launches.zero()
+            t0 = time.perf_counter()
+            state = svc.run()
+            torch.cuda.synchronize()
+            fast_s = time.perf_counter() - t0
+            fast = launches.read(f"{name} fast sync", ("k1r",))
+        verify_calls = totals["fastsync.verify"][0]
         pivot = pivots[-1].number
         check(pivot == pivot_want, f"{name}: pivot {pivot} != {pivot_want}")
         check(fast["k1r"] == verify_calls and fast["k5"] == fast["k4"] == 0,
@@ -2624,18 +2915,16 @@ def live_sync_phase(args, torch, dev, launches, chain100k) -> dict:
             return real_healing(peer, block)
 
         sync._import_healing = counting_healing
-        observability.SPAN_TOTALS.clear()
-        observability.enable()
-        launches.zero()
-        t0 = time.perf_counter()
-        sync.run(until=lambda: client_bc.best_block_number >= best,
-                 max_seconds=300)
-        torch.cuda.synchronize()
-        regular_s = time.perf_counter() - t0
-        sync._import_healing = real_healing
-        reg = launches.read(f"{name} regular sync", ("k5",))
-        spans = {k: v[1] for k, v in observability.SPAN_TOTALS.items()}
-        observability.enable(False)
+        with span_totals() as totals:
+            launches.zero()
+            t0 = time.perf_counter()
+            sync.run(until=lambda: client_bc.best_block_number >= best,
+                     max_seconds=300)
+            torch.cuda.synchronize()
+            regular_s = time.perf_counter() - t0
+            sync._import_healing = real_healing
+            reg = launches.read(f"{name} regular sync", ("k5",))
+        spans = {k: v[1] for k, v in totals.items()}
         fetch_s = spans.get("sync.fetch.headers", 0.0) + spans.get(
             "sync.fetch.bodies", 0.0)
         device_w = WINDOW_GAUGES["device_windows"] - before["device_windows"]
@@ -2809,11 +3098,12 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
 
-    from khipu_tpu_torch import observability, workloads
+    from khipu_tpu_torch import workloads
     from khipu_tpu_torch.base.keccak import keccak256_py
     from khipu_tpu_torch.base.rlp import rlp_encode_int
     from khipu_tpu_torch.domain.account import Account, address_key
     from khipu_tpu_torch.native import build as native_build
+    from khipu_tpu_torch.observability.recorder import compile_log
     from khipu_tpu_torch.ops import build, keccak_cuda, keccak_torch
     from khipu_tpu_torch.ops.keccak import keccak256_batch, keccak256_device_fixed
     from khipu_tpu_torch.state import load_reference_nodes
@@ -2873,7 +3163,9 @@ def main() -> int:
                              args.arith_triples, args.rlp_items)
     host["builds"] = [
         {"kind": kind, "output": label, "seconds": sec}
-        for kind, label, sec in observability.compile_log.events
+        for kind, label, sec in (
+            (e["kind"], e["signature"], e.get("compile_s"))
+            for e in compile_log.snapshot()["events"])
         if label.startswith(("libkhipu_host_", "khipu_rlp_ext_"))]
     emit(host)
 
@@ -3145,14 +3437,12 @@ def main() -> int:
             refs[i].append(s.force_hashed_root())
             sessions[i] = s
     apply_s = time.perf_counter() - t0
-    observability.SPAN_TOTALS.clear()
-    observability.enable()
-    t0 = time.perf_counter()
-    w_trie, w_map = deferred.finalize(sessions[0], return_mapping=True,
-                                      fused=True, device=dev)
-    finalize_s = time.perf_counter() - t0
-    observability.enable(False)
-    spans = {k: v[1] for k, v in observability.SPAN_TOTALS.items()}
+    with span_totals() as totals:
+        t0 = time.perf_counter()
+        w_trie, w_map = deferred.finalize(sessions[0], return_mapping=True,
+                                          fused=True, device=dev)
+        finalize_s = time.perf_counter() - t0
+    spans = {k: v[1] for k, v in totals.items()}
     w_nodes, w_levels = (fused.FUSED_GAUGES["last_nodes"],
                          fused.FUSED_GAUGES["last_levels"])
     l_trie, l_map = deferred.finalize(sessions[1], plain_hasher,
@@ -3259,20 +3549,18 @@ def main() -> int:
     m_nblocks = node_len // 136 + 1
     rows = torch.randint(0, 256, (n_rows, node_len), dtype=torch.uint8,
                          device=dev, generator=gen)
-    observability.SPAN_TOTALS.clear()
-    observability.enable()
-    launches.zero()
-    t0 = time.perf_counter()
-    claims = keccak256_device_fixed(rows, device=dev)
-    blob = claims.cpu().numpy().tobytes()
-    hashes = [blob[i:i + 32] for i in range(0, len(blob), 32)]
-    claims_s = time.perf_counter() - t0
-    mirror = DeviceNodeMirror(capacity_rows_per_class=n_rows, device=dev)
-    mirror.admit_packed(hashes, rows, exact=True)
-    torch.cuda.synchronize()
-    ingest_s = time.perf_counter() - t0
-    observability.enable(False)
-    bookkeep_s = observability.SPAN_TOTALS["mirror.bookkeep"][1]
+    with span_totals() as totals:
+        launches.zero()
+        t0 = time.perf_counter()
+        claims = keccak256_device_fixed(rows, device=dev)
+        blob = claims.cpu().numpy().tobytes()
+        hashes = [blob[i:i + 32] for i in range(0, len(blob), 32)]
+        claims_s = time.perf_counter() - t0
+        mirror = DeviceNodeMirror(capacity_rows_per_class=n_rows, device=dev)
+        mirror.admit_packed(hashes, rows, exact=True)
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+    bookkeep_s = totals["mirror.bookkeep"][1]
     bad = mirror.verify()
     path = launches.read("mirror_verify", ("k1f", "k3", "k4"))
     check(bad == 0, f"mirror verify found {bad} mismatches on clean rows")
@@ -3361,17 +3649,15 @@ def main() -> int:
     sync_mirror = DeviceNodeMirror(capacity_rows_per_class=capacity, device=dev)
     syncer = StateSyncer(target, FastSyncStateStorage(MemoryKeyValueDataSource()),
                          fetch, mirror=sync_mirror, device=dev)
-    observability.SPAN_TOTALS.clear()
-    observability.enable()
-    launches.zero()
-    t0 = time.perf_counter()
-    state = syncer.start(src_root)
-    torch.cuda.synchronize()
-    sync_s = time.perf_counter() - t0
-    path = launches.read("fast_sync", ("k1r", "k3", "k4"))
-    observability.enable(False)
-    sync_spans = {k: v[1] for k, v in observability.SPAN_TOTALS.items()}
-    verify_calls = observability.SPAN_TOTALS["fastsync.verify"][0]
+    with span_totals() as totals:
+        launches.zero()
+        t0 = time.perf_counter()
+        state = syncer.start(src_root)
+        torch.cuda.synchronize()
+        sync_s = time.perf_counter() - t0
+        path = launches.read("fast_sync", ("k1r", "k3", "k4"))
+    sync_spans = {k: v[1] for k, v in totals.items()}
+    verify_calls = totals["fastsync.verify"][0]
     check(path["k1r"] == verify_calls, f"K1r launched {path['k1r']} times "
           f"for {verify_calls} content checks, not once each")
     check(fetched["deliveries"] == 2, "the corrupt node was not retried once")
@@ -3460,7 +3746,9 @@ def main() -> int:
     replay_err, chains = replay_phases(args, torch, dev, launches, packed,
                                        hold_ragged)
     k1r_err = max(k1r_err, replay_err)
-    k5_replay, w8 = windowed_phases(args, torch, dev, launches, chains)
+    k5_replay, w8 = windowed_phases(args, torch, dev, launches, chains,
+                                    k1f_hashes_per_s=n_msg
+                                    / (big_ms["k1f"] / 1e3))
     k5_err = max(k5_err, max(w["max_abs_err"] for w in k5_replay.values()))
     emit(ethash_phase())
     rec = recovery_helpers(args, torch, dev, launches, w8)

@@ -38,7 +38,7 @@ import threading
 from dataclasses import dataclass
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
-from khipu_tpu_torch.observability import REGISTRY
+from khipu_tpu_torch.observability.registry import REGISTRY
 
 __all__ = [
     "InvariantResult",

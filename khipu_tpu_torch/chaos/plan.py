@@ -36,7 +36,8 @@ Fault taxonomy (docs/recovery.md):
 
 Every fired fault is recorded in the plan's ``fired`` log, the module
 ``fault_log`` ring (the ``chaos`` registry collector) and as a
-``chaos.fault`` event (``observability.EVENT_COUNTS``).
+``chaos.fault`` instant event in the current tracer's ring (when
+tracing is on; ``observability.trace.event``).
 """
 
 from __future__ import annotations
@@ -47,8 +48,8 @@ from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
-from khipu_tpu_torch.observability import REGISTRY
-from khipu_tpu_torch.observability import event as _trace_event
+from khipu_tpu_torch.observability.registry import REGISTRY
+from khipu_tpu_torch.observability.trace import event as _trace_event
 
 __all__ = [
     "InjectedFault",
@@ -70,8 +71,9 @@ __all__ = [
 KINDS = ("raise", "latency", "corrupt", "die")
 
 # Canonical registry of every fault seam in the tree — the chaos
-# analog of profiler.KNOWN_SITES. A seam name ending in ``*`` is a
-# prefix pattern for parameterised seams (``cluster.call:{endpoint}``).
+# analog of the JAX package's profiler.KNOWN_SITES. A seam name ending
+# in ``*`` is a prefix pattern for parameterised seams
+# (``cluster.call:{endpoint}``).
 # tests/test_torch_chaos.py's seam audit walks every ``fault_point`` /
 # ``fault_value`` call in khipu_tpu_torch/ and fails if a seam is
 # missing here OR exercised by no port test, so a new seam cannot

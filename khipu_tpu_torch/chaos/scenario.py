@@ -46,7 +46,7 @@ from khipu_tpu_torch.chaos.plan import (
     InjectedDeath,
     known_seam,
 )
-from khipu_tpu_torch.observability import event as _trace_event
+from khipu_tpu_torch.observability.trace import event as _trace_event
 
 __all__ = [
     "SEAM_KINDS",

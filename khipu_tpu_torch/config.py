@@ -4,8 +4,9 @@ The port's copy of ``khipu_tpu.config``, every default the same, cut to
 the fields the port reads: the chain's fork schedule, the replay's
 sync knobs (serial, optimistic and scheduled execution, the execute
 stage's device validation, the windowed commit pipeline, the commit
-journal and the adaptive controller) and the reorg depth limit
-(``DbConfig.unconfirmed_depth``). A section or field comes back with the
+journal and the adaptive controller), the reorg depth limit
+(``DbConfig.unconfirmed_depth``) and the observability plane
+(``ObservabilityConfig``). A section or field comes back with the
 module that reads it.
 
 Parity: config/KhipuConfig.scala:20-120 (nested Network/Sync/Db accessor
@@ -202,10 +203,53 @@ class SyncConfig:
 
 
 @dataclass(frozen=True)
+class ObservabilityConfig:
+    """Flight recorder (observability/ package).
+
+    ``enabled=False`` (the default) keeps every ``span(...)`` seam an
+    attribute load + branch returning an inert singleton: bit-exact
+    identical replay behavior, no recording. Enabling sizes the
+    lock-light drop-oldest ring that trace.py records into. (The JAX
+    package's ``compile_cache_capacity`` and ``chrome_trace_path`` have
+    no reader in the port: it has no fused compile cache, and no bench
+    or service that dumps a trace on its own.)"""
+
+    enabled: bool = False
+    ring_capacity: int = 65536  # spans retained (drop-oldest beyond)
+    # head-based per-trace-id sampling: keep N in 10_000 traces, decided
+    # deterministically from the trace id (trace.trace_sampled).
+    # 10_000 (default) keeps everything
+    sample_per_10k: int = 10_000
+    # data-movement ledger (observability/profiler.py): per-site
+    # host<->device transfer accounting behind khipu_device_transfer_*
+    # and window_report(n). Off by default — same zero-cost contract as
+    # the tracer
+    ledger_enabled: bool = False
+    ledger_capacity: int = 65536  # transfer events retained
+    # per-transaction lineage plane (observability/journey.py — the
+    # "tx passport"): bounded per-tx lifecycle event records keyed by
+    # tx hash. Same zero-cost contract: off by default, every seam one
+    # attribute load + branch
+    journey_enabled: bool = False
+    journey_capacity: int = 4096  # happy-path journeys (drop-oldest)
+    journey_pinned_capacity: int = 1024  # tail-retained journeys
+    # deterministic head-sampling in the tx hash (journey_sampled):
+    # keep N in 10_000 happy-path journeys; pinned classes (shed,
+    # mispredicted, retracted, rolled-back, slow) always tracked
+    journey_sample_per_10k: int = 10_000
+    journey_max_events: int = 64  # per-journey event cap
+    # ingress->durable beyond this budget pins the journey (slow tail)
+    journey_slow_ms: float = 250.0
+
+
+@dataclass(frozen=True)
 class KhipuConfig:
     blockchain: BlockchainConfig = field(default_factory=BlockchainConfig)
     db: DbConfig = field(default_factory=DbConfig)
     sync: SyncConfig = field(default_factory=SyncConfig)
+    observability: ObservabilityConfig = field(
+        default_factory=ObservabilityConfig
+    )
 
 
 def fixture_config(

@@ -21,16 +21,20 @@ frames each backend ran.
 from __future__ import annotations
 
 import os
+import threading
 from typing import Optional, Tuple
 
 from khipu_tpu_torch.evm import native_vm
 from khipu_tpu_torch.evm import vm as pyvm
 from khipu_tpu_torch.evm.config import EvmConfig
 from khipu_tpu_torch.evm.vm import MessageEnv, ProgramResult
-from khipu_tpu_torch.observability import REGISTRY
+from khipu_tpu_torch.observability.registry import REGISTRY
 
 VM_GAUGES = REGISTRY.gauge_group("khipu_vm", {
     "native_frames": 0, "python_frames": 0})
+# the exec pool's threads run frames at once; a gauge's += is a read
+# and a write
+_VM_GAUGES_LOCK = threading.Lock()
 
 _FORCED: Optional[str] = None  # None=auto | "python" | "native"
 
@@ -55,7 +59,9 @@ def use_native(gas: int) -> bool:
 
 
 def _count(native: bool) -> None:
-    REGISTRY.inc(VM_GAUGES, "native_frames" if native else "python_frames")
+    key = "native_frames" if native else "python_frames"
+    with _VM_GAUGES_LOCK:
+        VM_GAUGES[key] += 1
 
 
 def run_message_call(

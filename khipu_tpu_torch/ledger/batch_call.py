@@ -48,6 +48,7 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 from khipu_tpu_torch.chaos.plan import fault_point
+from khipu_tpu_torch.observability.journey import JOURNEY
 from khipu_tpu_torch.ledger.batch_exec import (
     check_tx_scalars,
     gather_validate_rows,
@@ -142,4 +143,8 @@ def execute_call_batch(
     # a stale touch mark would surface in the NEXT interpreter tx's
     # sweep as an out-of-footprint account read
     world.touched.clear()
+    if JOURNEY.enabled:
+        for index, stx, _sender, _ch, _tpl in items:
+            JOURNEY.record(stx.hash, "execute",
+                           lane="vector-call", index=index)
     return results

@@ -48,6 +48,7 @@ from khipu_tpu_torch.base.secp256k1 import HALF_N
 from khipu_tpu_torch.chaos.plan import fault_point
 from khipu_tpu_torch.domain.account import EMPTY_CODE_HASH
 from khipu_tpu_torch.ledger.schedule import Misprediction
+from khipu_tpu_torch.observability.journey import JOURNEY
 
 _U64 = (1 << 64) - 1
 _U256 = 1 << 256
@@ -203,4 +204,8 @@ def execute_fast_batch(
     # whose get_account probes would then escape that tx's predicted
     # footprint
     world.touched.clear()
+    if JOURNEY.enabled:
+        for index, stx, _sender in items:
+            JOURNEY.record(stx.hash, "execute",
+                           lane="vector-transfer", index=index)
     return results

@@ -59,6 +59,8 @@ from khipu_tpu_torch.evm.vm import BlockEnv, MessageEnv
 from khipu_tpu_torch.ledger.bloom import bloom_of_logs, bloom_union
 from khipu_tpu_torch.ledger.rewards import block_rewards
 from khipu_tpu_torch.ledger.world import BlockWorldState
+from khipu_tpu_torch.observability.journey import JOURNEY
+from khipu_tpu_torch.observability.profiler import HOST, LEDGER
 
 
 class BlockExecutionError(Exception):
@@ -452,7 +454,18 @@ def execute_block(
                     if isinstance(e, Misprediction):
                         stats.mispredicted_txs += 1
                         EXEC_GAUGES["mispredictions"] += 1
+                        if JOURNEY.enabled and e.index < len(txs):
+                            JOURNEY.record(txs[e.index].hash,
+                                           "mispredict",
+                                           reason=e.detail,
+                                           block=header.number)
                     EXEC_GAUGES["fallbacks"] += 1
+                    if JOURNEY.enabled:
+                        for stx in txs:
+                            JOURNEY.record(stx.hash, "execute",
+                                           lane="serial-fallback",
+                                           rerun=True,
+                                           block=header.number)
                     stats.parallel_count = 0
                     stats.conflict_count = 0
                     stats.fast_path_txs = 0
@@ -468,6 +481,12 @@ def execute_block(
                     stats.mispredicted_txs += 1
                     EXEC_GAUGES["mispredictions"] += 1
                     EXEC_GAUGES["fallbacks"] += 1
+                    if JOURNEY.enabled:
+                        for stx in txs:
+                            JOURNEY.record(stx.hash, "execute",
+                                           lane="serial-fallback",
+                                           rerun=True,
+                                           block=header.number)
                     stats.parallel_count = 0
                     stats.conflict_count = 0
                     stats.fast_path_txs = 0
@@ -667,8 +686,16 @@ def _execute_scheduled(
             code_hash = (
                 merged.get_code_hash(tx.to) if tx.to is not None else None
             )
+            t_run = time.perf_counter()
             captured = run_captured(i, accumulated_gas)
+            # host-side classification event: per-tx interpreter time,
+            # the residue against the vectorized batches
+            LEDGER.record("exec.residue", HOST, 0,
+                          duration=time.perf_counter() - t_run)
             stats.residue_txs += 1
+            if JOURNEY.enabled:
+                JOURNEY.record(txs[i].hash, "execute",
+                               lane="residue", index=i)
             if (
                 code_hash is not None
                 and code_hash != EMPTY_CODE_HASH
@@ -721,7 +748,12 @@ def _execute_scheduled(
                             k: merged.get_original_storage(tx_i.to, k)
                             for k in keys
                         }
+                t_run = time.perf_counter()
                 captured = run_captured(i, 0)
+                # checked template calls run the interpreter too: the
+                # residue's cost bucket
+                LEDGER.record("exec.residue", HOST, 0,
+                              duration=time.perf_counter() - t_run)
                 if not footprint_ok(
                     pred, captured["reads"], captured["written"]
                 ):
@@ -731,6 +763,9 @@ def _execute_scheduled(
                     )
                 stats.parallel_count += 1
                 EXEC_GAUGES["checked_call_txs"] += 1
+                if JOURNEY.enabled:
+                    JOURNEY.record(txs[i].hash, "execute",
+                                   lane="checked", index=i)
                 if (confirm_keys is not None
                         and outcomes[i].error is None
                         and outcomes[i].status == 1):
@@ -746,10 +781,15 @@ def _execute_scheduled(
             else:
                 fast_items.append((i, txs[i], senders[i]))
         if call_items:
+            t_run = time.perf_counter()
             results = execute_call_batch(
                 config, merged, call_items,
                 device_validate=device_validate,
             )
+            # the vectorized templated calls join the transfer batches
+            # in the exec.batch cost bucket
+            LEDGER.record("exec.batch", HOST, 0,
+                          duration=time.perf_counter() - t_run)
             for (i, _, _, ch, _), r in zip(call_items, results):
                 outcomes[i] = r
                 trusted_used.add(ch)
@@ -757,10 +797,15 @@ def _execute_scheduled(
             stats.parallel_count += len(call_items)
             EXEC_GAUGES["vector_call_txs"] += len(call_items)
         if fast_items:
+            t_run = time.perf_counter()
             results = execute_fast_batch(
                 config, merged, fast_items,
                 device_validate=device_validate,
             )
+            # host-side classification event: vectorized fast-path time
+            # a batch
+            LEDGER.record("exec.batch", HOST, 0,
+                          duration=time.perf_counter() - t_run)
             for (i, _, _), r in zip(fast_items, results):
                 outcomes[i] = r
             stats.fast_path_txs += len(fast_items)

@@ -92,7 +92,8 @@ from khipu_tpu_torch.ledger.world import (
     ON_CODE,
     ON_STORAGE,
 )
-from khipu_tpu_torch.observability import REGISTRY
+from khipu_tpu_torch.observability.journey import JOURNEY
+from khipu_tpu_torch.observability.registry import REGISTRY
 
 # one registry family for the whole execute stage (the port's own
 # registry: nothing here shares or resets a gauge of the JAX package)
@@ -1063,6 +1064,24 @@ def plan_block(txs: Sequence, senders: Sequence[Optional[bytes]],
     )
     if plan.max_width > EXEC_GAUGES["max_batch_width"]:
         EXEC_GAUGES["max_batch_width"] = plan.max_width
+    if JOURNEY.enabled:
+        # the passport's "schedule" page: the DECISION (predicted lane
+        # + batch id), stamped before any execution — the execute stamp
+        # later records the lane that actually ran
+        for step_i, step in enumerate(plan.steps):
+            for i in step.indices:
+                if step.kind == RESIDUE:
+                    lane = "residue"
+                else:
+                    pred = plan.predicted[i]
+                    if pred.kind == FAST:
+                        lane = "vector-transfer"
+                    elif i in plan.trusted:
+                        lane = "vector-call"
+                    else:
+                        lane = "checked"
+                JOURNEY.record(txs[i].hash, "schedule",
+                               batch=step_i, lane=lane)
     return plan
 
 

@@ -42,7 +42,9 @@ from khipu_tpu_torch.device import resolve_device
 from khipu_tpu_torch.domain.account import address_key
 from khipu_tpu_torch.domain.block_header import BlockHeader
 from khipu_tpu_torch.ledger.world import BlockWorldState
-from khipu_tpu_torch.observability import REGISTRY, span
+from khipu_tpu_torch.observability.profiler import H2D, HOST, LEDGER
+from khipu_tpu_torch.observability.registry import REGISTRY
+from khipu_tpu_torch.observability.trace import span
 from khipu_tpu_torch.ops.keccak_torch import RATE
 from khipu_tpu_torch.trie.bulk import Hasher, host_hasher
 from khipu_tpu_torch.trie.deferred import (
@@ -317,13 +319,23 @@ class WindowCommitter:
         # the raw encodings, in placeholder order; refs to earlier
         # windows are substituted by the launch (device) or the host
         # level loop, and at persist
-        with span("seal.pack"):
+        pack_t0 = time.perf_counter() if LEDGER.enabled else 0.0
+        with span("seal.pack", **job.range_tags()) as pack_sp:
             to_resolve: Dict[bytes, bytes] = {}
             for idx in range(start, end):
                 ph = _make_placeholder(idx)
                 enc = staged.get(ph)
                 if enc is not None:  # None: another session's counter
                     to_resolve[ph] = enc
+            pack_sp.set_tag("nodes", len(to_resolve))
+        if LEDGER.enabled:
+            # host-side classification event: the encoding bytes the pack
+            # step staged for dispatch (the cost model's node x bytes
+            # join for seal.pack)
+            LEDGER.record(
+                "seal.pack", HOST, sum(len(e) for e in to_resolve.values()),
+                duration=time.perf_counter() - pack_t0,
+            )
         job.to_resolve = to_resolve
         # chaos seam: a die between the pack scan and the dispatch — the
         # resumed stage re-runs pack_and_dispatch from the top (memory-
@@ -340,12 +352,14 @@ class WindowCommitter:
 
             if job.fused_job is None:
                 # the mirror's admit gather rides inside the launch
-                # (FusedJob.admit_tiles)
+                # (FusedJob.admit_tiles); its spans carry the window's
+                # block range
                 job.fused_job = fused_submit(
                     to_resolve, None, _PLACEHOLDER_PREFIX,
                     device=self.device,
-                    ext=ExtRows(self._ext_source),
+                    ext=ExtRows(self._ext_source, job.range_tags()),
                     admit_live=job.live if self.mirror is not None else None,
+                    span_tags=job.range_tags(),
                 )
             fj = job.fused_job
             if fj.dpos:
@@ -362,7 +376,8 @@ class WindowCommitter:
             hasher = self.hasher
             if adaptive is not None and not adaptive.device_mode:
                 hasher = host_hasher
-            job.mapping = self._resolve_on_host(to_resolve, hasher)
+            job.mapping = self._resolve_on_host(to_resolve, hasher,
+                                                job.range_tags())
             # digests are FINAL here — publish now so the next seal
             # resolves this window's refs without a barrier (persistence
             # is still gated by collect's root checks)
@@ -397,7 +412,7 @@ class WindowCommitter:
         return real
 
     def _resolve_on_host(self, to_resolve: Dict[bytes, bytes],
-                         hasher: Hasher) -> Dict[bytes, bytes]:
+                         hasher: Hasher, tags: dict) -> Dict[bytes, bytes]:
         """The host level loop: scan for the in-window children, seed
         the refs out of the window (an in-flight device window's refs by
         a blocking collect of its digests), hash level by level."""
@@ -421,7 +436,7 @@ class WindowCommitter:
                         mapping[ref] = real
                 pos = enc.find(_PLACEHOLDER_PREFIX, pos + 32)
             deps[ph] = children
-        with span("window.hash"):
+        with span("window.hash", nodes=len(to_resolve), **tags):
             for level in topo_levels(deps):
                 digests = hasher([
                     _substitute_bytes(to_resolve[ph], mapping)
@@ -458,7 +473,8 @@ class WindowCommitter:
         resolved_global = self._resolved_global
         refs = [root_ref for _h, root_ref in job.pending_blocks]
         results: List[Tuple[BlockHeader, bytes]] = []
-        with span("seal.rootcheck"):
+        with span("seal.rootcheck", blocks=len(job.pending_blocks),
+                  **job.range_tags()):
             if job.mapping is not None:
                 fetched = job.mapping
             elif job.fused_job is not None:
@@ -507,7 +523,8 @@ class WindowCommitter:
         tiles = fj.admit_tiles
         if tiles is not None:
             aliases2: List[bytes] = []
-            with span("seal.alias_gather"):
+            with span("seal.alias_gather", live=len(job.live),
+                      fused_admit=True, **job.range_tags()):
                 for nb2, keys2, enc_g2, claim_g2, lengths2 in tiles:
                     mirror.admit_device(
                         nb2, keys2, enc_g2, claim_g2, lengths2
@@ -524,7 +541,8 @@ class WindowCommitter:
 
         live = job.live
         aliases: List[bytes] = []
-        with span("seal.alias_gather"):
+        with span("seal.alias_gather", live=len(live),
+                  **job.range_tags()):
             for c, (phs, base) in enumerate(fj.class_rows):
                 enc_dev = fj.encs[c]
                 nb = int(enc_dev.shape[1]) // RATE
@@ -548,7 +566,11 @@ class WindowCommitter:
                 rows[:n] = torch.tensor(idx, dtype=torch.long)
                 keys.extend([None] * (npad - n))
                 lengths.extend([0] * (npad - n))
-                rows = rows.to(enc_dev.device)
+                # only the row indices cross; the gathers run card to
+                # card
+                with LEDGER.transfer("mirror.admit_window", H2D,
+                                     rows.numel() * rows.element_size()):
+                    rows = rows.to(enc_dev.device)
                 enc_g = enc_dev.index_select(0, rows)
                 claim_g = fj.digests.index_select(0, rows + base)
                 mirror.admit_device(nb, keys, enc_g, claim_g, lengths)
@@ -582,7 +604,8 @@ class WindowCommitter:
         resolved_global = self._resolved_global
         published = False
         if job.aliases:
-            with span("window.rekey"):
+            with span("window.rekey", rows=len(job.aliases),
+                      **job.range_tags()):
                 self.mirror.rekey(
                     {a: mapping[a] for a in job.aliases if a in mapping}
                 )
@@ -619,7 +642,7 @@ class WindowCommitter:
         if published and self.mirror is not None and reals:
             spilled = self.mirror.spill_rows(reals)
 
-        with span("window.store"):
+        with span("window.store", live=len(live_phs), **job.range_tags()):
             if spilled:
                 miss = [
                     i for i, real in enumerate(reals)
@@ -652,9 +675,15 @@ class WindowCommitter:
             # only; the mirror is volatile and detached there)
             fault_point("collector.spill")
             self.storages.storage_node_storage.update([], storage_nodes)
-            self.persist_bytes += sum(len(e) for e in subbed) + 32 * len(
-                live_phs)
-            self.persist_seconds += time.perf_counter() - t_store
+            store_bytes = sum(len(e) for e in subbed) + 32 * len(live_phs)
+            store_secs = time.perf_counter() - t_store
+            self.persist_bytes += store_bytes
+            self.persist_seconds += store_secs
+            if LEDGER.enabled:
+                # host-side store traffic: classification only (HOST
+                # direction never feeds the device-transfer counters)
+                LEDGER.record("window.store", HOST, store_bytes,
+                              duration=store_secs)
         # only THIS window's codes persist (later windows' roots are
         # still unchecked; their codes stay staged until their persist)
         staged_codes = self._evmcode_source.staged
@@ -728,3 +757,12 @@ class WindowJob:
         # idempotency latch
         self._packed = False
         self._pack_range: Tuple[int, int] = (0, 0)
+
+    def range_tags(self) -> dict:
+        """The window's block range as span tags (``block_lo`` /
+        ``block_hi``), so the sub-phase spans of one window join its
+        window report and cost rows; empty for a window of no blocks."""
+        if not self.pending_blocks:
+            return {}
+        return {"block_lo": self.pending_blocks[0][0].number,
+                "block_hi": self.pending_blocks[-1][0].number}

@@ -34,7 +34,7 @@ from contextlib import contextmanager
 from pathlib import Path
 from typing import List
 
-from khipu_tpu_torch.observability import compile_log
+from khipu_tpu_torch.observability.recorder import compile_log
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 CSRC_EXT = Path(__file__).resolve().parent / "csrc_ext"

@@ -22,7 +22,7 @@ import time
 from pathlib import Path
 from typing import List
 
-from khipu_tpu_torch.observability import compile_log
+from khipu_tpu_torch.observability.recorder import compile_log
 
 PKG = Path(__file__).resolve().parents[1]
 BUILD_DIR = PKG / "_build"

@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 from khipu_tpu_torch.device import resolve_device
-from khipu_tpu_torch.observability import span
+from khipu_tpu_torch.observability.profiler import D2H, H2D, LEDGER
+from khipu_tpu_torch.observability.trace import span
 from khipu_tpu_torch.ops import keccak_cuda, keccak_torch
 
 
@@ -25,23 +26,30 @@ def keccak256_batch(messages: Sequence[bytes], device=None) -> List[bytes]:
     on the card that is one upload (``stage_ragged``), one K1r launch
     whatever the mix of rate classes, and one copy of the digests back.
     Spans: ``keccak.pack``, ``keccak.dispatch`` (upload and launch),
-    ``keccak.collect`` (the wait and the copy back)."""
+    ``keccak.collect`` (the wait and the copy back). Ledger site
+    ``ops.keccak``: the header and blob up, the digests back (metered on
+    the CPU path too, where the copies are no-ops)."""
     dev = resolve_device(device)
     if not messages:
         return []
     with span("keccak.pack"):
         blob, offsets, lengths = keccak_torch.pack_ragged(messages)
     with span("keccak.dispatch"):
+        up = offsets.nbytes + lengths.nbytes + blob.nbytes
         if dev.type == "cuda":
-            blob_d, header_d = stage_ragged(blob, offsets, lengths, dev)
+            with LEDGER.transfer("ops.keccak", H2D, up):
+                blob_d, header_d = stage_ragged(blob, offsets, lengths, dev)
             out = keccak_cuda.absorb_ragged(blob_d, offsets, lengths,
                                             header=header_d)
         else:
-            out = keccak_torch.absorb_ragged(torch.from_numpy(blob),
-                                             torch.from_numpy(offsets),
-                                             torch.from_numpy(lengths))
+            with LEDGER.transfer("ops.keccak", H2D, up):
+                args = (torch.from_numpy(blob), torch.from_numpy(offsets),
+                        torch.from_numpy(lengths))
+            out = keccak_torch.absorb_ragged(*args)
     with span("keccak.collect"):
-        raw = out.cpu().numpy().tobytes()
+        with LEDGER.transfer("ops.keccak", D2H,
+                             out.numel() * out.element_size()):
+            raw = out.cpu().numpy().tobytes()
         return [raw[i : i + 32] for i in range(0, len(raw), 32)]
 
 
@@ -81,7 +89,11 @@ def _as_rows(data: Union[np.ndarray, torch.Tensor], dev) -> torch.Tensor:
         data = data.contiguous().view(torch.uint8)
     if data.dtype != torch.uint8:
         raise ValueError("expected u8[N, L] or u32[N, L/4]")
-    return data.to(dev).contiguous()
+    if data.device.type != "cpu":
+        return data.to(dev).contiguous()
+    with LEDGER.transfer("ops.keccak", H2D,
+                         data.numel() * data.element_size()):
+        return data.to(dev).contiguous()
 
 
 

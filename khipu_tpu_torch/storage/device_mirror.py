@@ -41,7 +41,9 @@ import numpy as np
 import torch
 
 from khipu_tpu_torch.device import resolve_device
-from khipu_tpu_torch.observability import REGISTRY, span as _span
+from khipu_tpu_torch.observability.profiler import D2H, H2D, LEDGER
+from khipu_tpu_torch.observability.registry import REGISTRY
+from khipu_tpu_torch.observability.trace import span as _span
 from khipu_tpu_torch.ops import keccak_torch
 from khipu_tpu_torch.ops.keccak_torch import RATE
 from khipu_tpu_torch.storage import mirror_cuda
@@ -110,12 +112,16 @@ def verify_planes(planes: torch.Tensor, claimed: torch.Tensor, nblocks: int,
     """Content-address mismatches of a class: K4 on the card, the plain
     version on the CPU."""
     if planes.is_cuda:
-        return int(mirror_cuda.verify_planes(
+        count = mirror_cuda.verify_planes(
             planes, claimed, nblocks, _nwords_in(nblocks, exact_len)
-        ).item())
+        )
+        with LEDGER.transfer("mirror.verify", D2H,
+                             count.numel() * count.element_size()):
+            return int(count.item())
     if planes.device.type != "cpu":
         raise ValueError(f"unsupported device {planes.device}")
-    return verify_planes_plain(planes, claimed, nblocks, exact_len)
+    with LEDGER.transfer("mirror.verify", D2H, 4):
+        return verify_planes_plain(planes, claimed, nblocks, exact_len)
 
 
 def _filler_row_u8_for(width: int, exact_len: Optional[int]) -> np.ndarray:
@@ -136,10 +142,16 @@ def _filler_for(nblocks: int, exact_len: Optional[int],
     words = torch.from_numpy(
         _filler_row_u8_for(width, exact_len).view("<i4").copy()
     )
-    planes = words.to(device)[:, None]
-    digest = torch.empty((8, 1), dtype=torch.int32, device=device)
-    hash_planes(planes, nblocks, exact_len, digest)
-    return words.numpy().tobytes(), digest.cpu().numpy().tobytes()
+    # amortized one-time cost: billed to its own phase so the lazy
+    # first-admit build never pollutes a steady-state stage's totals
+    with LEDGER.context(phase="init"):
+        LEDGER.record("mirror.init", H2D, words.numel() * 4)
+        planes = words.to(device)[:, None]
+        digest = torch.empty((8, 1), dtype=torch.int32, device=device)
+        hash_planes(planes, nblocks, exact_len, digest)
+        with LEDGER.transfer("mirror.init", D2H, 32):
+            digest_b = digest.cpu().numpy().tobytes()
+    return words.numpy().tobytes(), digest_b
 
 
 def _claim_words(hashes: List[bytes], device) -> torch.Tensor:
@@ -197,14 +209,18 @@ class _ClassMirror:
         filler_digest = torch.from_numpy(np.frombuffer(fd, "<i4").copy())
         # one-time materialization: only the two small filler vectors
         # cross to the card; the broadcast to full size happens there
-        self.resident = (
-            filler_words.to(device)[:, None]
-            .expand(self.nwords, capacity_rows).contiguous()
-        )
-        self.claimed = (
-            filler_digest.to(device)[:, None]
-            .expand(8, capacity_rows).contiguous()
-        )
+        # (billed to the init phase, not the stage that built the class)
+        with LEDGER.context(phase="init"), LEDGER.transfer(
+            "mirror.init", H2D, 4 * (self.nwords + 8)
+        ):
+            self.resident = (
+                filler_words.to(device)[:, None]
+                .expand(self.nwords, capacity_rows).contiguous()
+            )
+            self.claimed = (
+                filler_digest.to(device)[:, None]
+                .expand(8, capacity_rows).contiguous()
+            )
 
     def _cols(self) -> slice:
         return slice(self.fill, self.fill + TILE)
@@ -217,18 +233,31 @@ class _ClassMirror:
         filler rows self-claim through K3."""
         if isinstance(rows, np.ndarray):
             rows = torch.from_numpy(np.require(rows, np.uint8, ["C", "W"]))
-        words = rows.to(self.device).contiguous().view(torch.int32)
+        # the resident-tile refresh: the tile's rows (unless a snapshot
+        # generated on the card is already there) and its claims cross
+        # to the device
+        up = rows.numel() if rows.device.type == "cpu" else 0
+        full = len(hashes) >= TILE
+        with LEDGER.transfer("mirror.admit", H2D,
+                             up + (32 * TILE if full else 0)):
+            words = rows.to(self.device).contiguous().view(torch.int32)
+            claims = _claim_words(hashes, self.device) if full else None
         with self._lock:
             cols = self._cols()
             self.resident[:, cols].copy_(words.t())
-            if len(hashes) >= TILE:
-                self.claimed[:, cols].copy_(_claim_words(hashes, self.device))
+            if full:
+                self.claimed[:, cols].copy_(claims)
             else:
+                # partial tile: the filler rows self-claim through K3
+                # on the device; only the real rows' claims cross
                 hash_planes(self.resident[:, cols], self.nblocks,
                             self.exact_len, self.claimed[:, cols])
                 if hashes:
+                    with LEDGER.transfer("mirror.claim", H2D,
+                                         32 * len(hashes)):
+                        claims = _claim_words(hashes, self.device)
                     self.claimed[:, self.fill:self.fill + len(hashes)].copy_(
-                        _claim_words(hashes, self.device)
+                        claims
                     )
             self._bookkeep_tile(hashes, lengths, self.rows)
 
@@ -283,7 +312,7 @@ class _ClassMirror:
                 raise ValueError(
                     f"{name} must be u8[{TILE}, {w}] on {self.device}"
                 )
-        with self._lock, _span("mirror.admit_tile"):
+        with self._lock, _span("mirror.admit_tile", rows=len(keys)):
             cols = self._cols()
             self.resident[:, cols].copy_(
                 enc_dev.contiguous().view(torch.int32).t()
@@ -343,7 +372,8 @@ class _ClassMirror:
             ln = self.lengths.get(key)
             if ln is None:
                 return None
-            words = self.resident[:, row].cpu().numpy()
+            with LEDGER.transfer("mirror.get", D2H, self.nwords * 4):
+                words = self.resident[:, row].cpu().numpy()
             return words.astype("<i4").tobytes()[:ln]
 
     def spill_rows(self, keys) -> Dict[bytes, bytes]:
@@ -366,9 +396,11 @@ class _ClassMirror:
                     (key, row % TILE, ln)
                 )
             for t in sorted(by_tile):
-                rows_u8 = _rows_of(
-                    self.resident[:, t * TILE:(t + 1) * TILE]
-                ).cpu().numpy()
+                with LEDGER.transfer("mirror.spill", D2H,
+                                     self.nwords * 4 * TILE):
+                    rows_u8 = _rows_of(
+                        self.resident[:, t * TILE:(t + 1) * TILE]
+                    ).cpu().numpy()
                 MIRROR_GAUGES["spilled_tiles"] += 1
                 for key, r, ln in by_tile[t]:
                     out[key] = rows_u8[r, :ln].tobytes()
@@ -516,7 +548,7 @@ class DeviceNodeMirror:
         Missing keys (evicted, never admitted) are absent."""
         out: Dict[bytes, bytes] = {}
         remaining = list(keys)
-        with _span("mirror.spill"):
+        with _span("mirror.spill", rows=len(remaining)):
             for cm in list(self._classes.values()):
                 if not remaining:
                     break

@@ -56,13 +56,15 @@ unlinks) only ever drop bytes that were garbage or duplicated.
 from __future__ import annotations
 
 import os
+import time
 import struct
 import threading
 from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
 from khipu_tpu_torch.chaos import fault_point
 from khipu_tpu_torch.native.keccak import keccak256_batch
-from khipu_tpu_torch.observability import REGISTRY
+from khipu_tpu_torch.observability.profiler import HOST, LEDGER
+from khipu_tpu_torch.observability.registry import REGISTRY
 from khipu_tpu_torch.storage.datasource import (
     BlockDataSource,
     KeyValueDataSource,
@@ -340,6 +342,7 @@ class KesqueStore:
         if not entries:
             return 0
         nbytes = 0
+        t0 = time.perf_counter()
         with self._lock:
             i = 0
             while i < len(entries):
@@ -371,6 +374,9 @@ class KesqueStore:
                         )
             self.appended_bytes += nbytes
             self.appended_records += len(entries)
+        # host-side store traffic: classification only in the ledger
+        LEDGER.record("kesque.append", HOST, nbytes,
+                      duration=time.perf_counter() - t0)
         return nbytes
 
     def append_raw(self, raw: bytes,
@@ -385,6 +391,7 @@ class KesqueStore:
         re-CRC'd one record at a time."""
         if not raw:
             return
+        t0 = time.perf_counter()
         with self._lock:
             seg = self._active_locked()
             if seg.end and seg.end + len(raw) > self.segment_bytes:
@@ -399,6 +406,8 @@ class KesqueStore:
                 self._index[key] = (seg.seq, base + rel, rec)
             self.appended_bytes += len(raw)
             self.appended_records += len(entries)
+        LEDGER.record("kesque.append", HOST, len(raw),
+                      duration=time.perf_counter() - t0)
 
     # ------------------------------------------------------------- reads
 
@@ -753,6 +762,7 @@ class KesqueEngine:
 
         with self._compact_lock:
             fault_point("kesque.compact")
+            t0 = time.perf_counter()
             stores = {t: self.store(t) for t in NODE_TOPICS}
             frozen = {
                 t: stores[t].freeze_for_compaction() for t in NODE_TOPICS
@@ -776,6 +786,9 @@ class KesqueEngine:
             report.segment_stats = self.segment_stats()
             self.compactions += 1
             self.last_report = report
+            copied = sum(s.copied_bytes for s in sinks.values())
+            LEDGER.record("kesque.compact", HOST, copied,
+                          duration=time.perf_counter() - t0)
             return report
 
     # --------------------------------------------------------- streaming

@@ -41,7 +41,7 @@ import torch
 
 from khipu_tpu_torch.base.keccak import keccak256
 from khipu_tpu_torch.device import resolve_device
-from khipu_tpu_torch.observability import REGISTRY
+from khipu_tpu_torch.observability.registry import REGISTRY
 
 ADAPTIVE_GAUGES = REGISTRY.gauge_group("khipu_adaptive", {
     # 1 while the controller holds the device-mirror commit path

@@ -22,6 +22,7 @@ the per-node JVM kec256 at KesqueNodeDataSource.scala:61-63.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Mapping, Optional, Set, Tuple
 
@@ -32,7 +33,8 @@ from khipu_tpu_torch.domain.account import (
     EMPTY_STORAGE_ROOT,
     Account,
 )
-from khipu_tpu_torch.observability import span
+from khipu_tpu_torch.observability.profiler import HOST, LEDGER
+from khipu_tpu_torch.observability.trace import span
 from khipu_tpu_torch.trie.bulk import resolve_hasher
 
 # Typed node hashes (sync/package.scala:21-42).
@@ -165,7 +167,7 @@ class StateSyncer:
         self.mirror = mirror
 
     def _verify(self, hashes: List[bytes], values: List[bytes]) -> List[bool]:
-        with span("fastsync.verify"):
+        with span("fastsync.verify", nodes=len(hashes), device=True):
             digests = self.hasher(values)
             return [d == h for d, h in zip(digests, hashes)]
 
@@ -185,7 +187,8 @@ class StateSyncer:
             batch = state.pending[: self.batch_size]
             state.pending = state.pending[self.batch_size :]
             want = [h for _, h in batch]
-            with span("fastsync.fetch"):
+            with span("fastsync.fetch", batch=batches_done,
+                      nodes=len(want)):
                 got = self.fetch(want)
             missing: List[Tuple[int, bytes]] = []
             hashes, values, kinds = [], [], []
@@ -322,6 +325,7 @@ def segment_snapshot_ingest(
         offset, done = 0, False
         while not done:
             fault_point("kesque.ingest")
+            t0 = time.perf_counter()
             raw, offset, done = fetch_chunk(topic, seq, offset,
                                             chunk_bytes)
             if not raw:
@@ -330,9 +334,12 @@ def segment_snapshot_ingest(
             records += n
             corrupt += bad
             nbytes += len(raw)
+            LEDGER.record("kesque.ingest", HOST, len(raw),
+                          duration=time.perf_counter() - t0)
         return records, nbytes, corrupt
 
-    with span("fastsync.segment_ingest"):
+    with span("fastsync.segment_ingest", segments=len(manifest),
+              workers=workers):
         with ThreadPoolExecutor(max_workers=max(1, workers)) as pool:
             for records, nbytes, corrupt in pool.map(pull, manifest):
                 report.segments += 1

@@ -50,8 +50,8 @@ Crash points and their outcomes are enumerated in docs/recovery.md;
 tests/test_torch_chaos.py and tests/test_torch_reorg.py provoke them
 with the chaos harness, against the JAX package's ``recover`` on the
 same chains. The port's copy of ``khipu_tpu.sync.journal``: the same
-record format, readable by either package, without the transaction
-passport's stamps (ROADMAP A8). A torn switch rolls forward on the
+record format, readable by either package, with the transaction
+passport's ``journal.rollback`` stamps. A torn switch rolls forward on the
 ``device`` ``recover`` is given (None: the card).
 """
 
@@ -62,7 +62,8 @@ from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Union
 
 from khipu_tpu_torch.base.rlp import rlp_decode, rlp_encode
-from khipu_tpu_torch.observability import REGISTRY
+from khipu_tpu_torch.observability.journey import JOURNEY
+from khipu_tpu_torch.observability.registry import REGISTRY
 
 _INTENT_PREFIX = b"J"
 _COMMIT_PREFIX = b"C"
@@ -506,6 +507,13 @@ def _rollback_window(blockchain, rec: IntentRecord) -> int:
             try:
                 for tx in BlockBody.decode(body_raw).transactions:
                     s.transaction_storage.source.remove(tx.hash)
+                    if JOURNEY.enabled:
+                        # recovery truth on the passport: the tx's
+                        # half-committed window never reached the commit
+                        # mark — its journey ends before durable and
+                        # resumes when the re-import stamps fresh pages
+                        JOURNEY.record(tx.hash, "journal.rollback",
+                                       block=n)
             except Exception:
                 pass  # a torn body still gets its by-number records cut
         if header_raw is not None:
@@ -682,6 +690,9 @@ def _remove_above(blockchain, ancestor: int, top: int) -> int:
             try:
                 for tx in BlockBody.decode(body_raw).transactions:
                     s.transaction_storage.source.remove(tx.hash)
+                    if JOURNEY.enabled:
+                        JOURNEY.record(tx.hash, "journal.rollback",
+                                       block=n)
             except Exception:
                 pass  # a torn body still gets its by-number records cut
         h = s.block_numbers.hash_of(n)

@@ -37,7 +37,7 @@ from khipu_tpu_torch.base.secp256k1 import (
 from khipu_tpu_torch.base.rlp import rlp_encode
 from khipu_tpu_torch.device import resolve_device
 from khipu_tpu_torch.evm.dataword import to_minimal_bytes
-from khipu_tpu_torch.observability import REGISTRY
+from khipu_tpu_torch.observability.registry import REGISTRY
 
 PREFETCH_GAUGES = REGISTRY.gauge_group("khipu_sender_prefetch", {
     "hits": 0,  # senders served from the process-wide cache

@@ -62,7 +62,7 @@ from khipu_tpu_torch.network.messages import (
     encode_transactions,
 )
 from khipu_tpu_torch.network.peer import Peer, PeerError, PeerManager
-from khipu_tpu_torch.observability import span
+from khipu_tpu_torch.observability.trace import span
 from khipu_tpu_torch.ledger.ledger import BlockExecutionError
 from khipu_tpu_torch.sync.replay import (
     PHASES,
@@ -170,7 +170,8 @@ class RegularSyncService:
     ) -> List[BlockHeader]:
         # client-side span around the peer round-trip (no wire-format
         # change): fetch latency lands on the requesting thread's track
-        with span("sync.fetch.headers"):
+        with span("sync.fetch.headers", peer=peer.remote_pub[:8],
+                  max_headers=max_headers):
             body = peer.request(
                 ETH_OFFSET + GET_BLOCK_HEADERS,
                 GetBlockHeaders(start, max_headers, 0, reverse).body(),
@@ -185,7 +186,8 @@ class RegularSyncService:
     def _request_bodies(
         self, peer: Peer, hashes: List[bytes]
     ) -> List[BlockBody]:
-        with span("sync.fetch.bodies"):
+        with span("sync.fetch.bodies", peer=peer.remote_pub[:8],
+                  count=len(hashes)):
             body = peer.request(
                 ETH_OFFSET + GET_BLOCK_BODIES,
                 list(hashes),
@@ -316,7 +318,7 @@ class RegularSyncService:
         verified) into the node stores — the read-through self-heal the
         kesque DistributedNodeStorage role performs (storage/remote.py),
         wired into the live import loop."""
-        with span("sync.heal"):
+        with span("sync.heal", node=node_hash):
             body = peer.request(
                 ETH_OFFSET + GET_NODE_DATA,
                 [node_hash],
@@ -500,7 +502,8 @@ class RegularSyncService:
         """Single-block validated import with the missing-node heal
         loop — the per-block live path, also handed to
         ReorgManager.switch for per-block branch adoption."""
-        with span("import"):
+        with span("import", block=block.header.number,
+                  txs=len(block.body.transactions)):
             for attempt in range(3):
                 try:
                     with self._on_device():
@@ -637,7 +640,8 @@ class RegularSyncService:
             if number != self.blockchain.best_block_number + 1:
                 continue  # the pull round handles gaps/branches
             src = source if source is not None and source.alive else peer
-            with span("announce"):
+            with span("announce", block=number,
+                      from_announcer=source is not None):
                 headers = self._request_headers(src, number, 1)
                 if not headers or headers[0].hash != block_hash:
                     continue
@@ -695,7 +699,8 @@ class RegularSyncService:
         ):
             return  # side branch: the pull loop's TD rule decides
         try:
-            with span("import"), self._on_device():
+            with span("import", block=block.header.number, pushed=True), \
+                    self._on_device():
                 self._driver._execute_and_insert(block, _null_stats())
         except _BLOCK_REFUSED as e:  # invalid push: pull loop decides
             self.log(f"pushed block rejected: {e}")

@@ -37,9 +37,10 @@ off the pruned unconfirmed ring.
 The port's copy of ``khipu_tpu.sync.reorg``. A long branch adopts
 through the windowed pipeline (one K5 launch a window on the card), a
 short one block by block through the driver's commit (K1r on the card
-with ``device_commit``). Not carried yet: the serving read view's fence
-and the transaction passport (ROADMAP A10, A8); ``LogHit`` is a copy of
-the filter record the JSON-RPC layer will read (A10).
+with ``device_commit``). The transaction passport stamps
+``reorg.retract`` and ``reorg.reinclude``. Not carried yet: the serving
+read view's fence (ROADMAP A10); ``LogHit`` is a copy of the filter
+record the JSON-RPC layer will read (A10).
 """
 
 from __future__ import annotations
@@ -52,7 +53,9 @@ from khipu_tpu_torch.chaos import fault_point
 from khipu_tpu_torch.config import KhipuConfig
 from khipu_tpu_torch.domain.block import Block
 from khipu_tpu_torch.domain.blockchain import Blockchain
-from khipu_tpu_torch.observability import REGISTRY, span
+from khipu_tpu_torch.observability.journey import JOURNEY
+from khipu_tpu_torch.observability.registry import REGISTRY
+from khipu_tpu_torch.observability.trace import span
 
 
 @dataclass
@@ -174,9 +177,10 @@ class ReorgManager:
                 "adopted branch does not attach to the ancestor"
             )
 
-        with span("reorg.switch"):
+        with span("reorg.switch", ancestor=ancestor_number, depth=depth,
+                  adopted=len(blocks)):
             self._fence(ancestor_number)
-            with span("reorg.regenerate"):
+            with span("reorg.regenerate", ancestor=ancestor_number):
                 self.regenerated_blocks = self._ensure_ancestor_state(
                     ancestor_number)
             old_blocks = self._collect_old(ancestor_number, best)
@@ -188,6 +192,16 @@ class ReorgManager:
             removed_hits = (self._removed_hits(old_blocks)
                             if self._listeners else [])
             orphans = self._orphan_txs(old_blocks, blocks)
+            if JOURNEY.enabled:
+                # every tx on the losing branch gets its retraction page
+                # (PINNED — tail retention outlives the ring);
+                # re-inclusion is stamped at finalize once the branch
+                # actually won
+                for b in old_blocks:
+                    for stx in b.body.transactions:
+                        JOURNEY.record(stx.hash, "reorg.retract",
+                                       ancestor=ancestor_number,
+                                       block=b.header.number)
 
             journal = bc.storages.window_journal
             fault_point("reorg.intent")
@@ -197,9 +211,9 @@ class ReorgManager:
                 orphan_txs=orphans,
             )
             try:
-                with span("reorg.rollback"):
+                with span("reorg.rollback", blocks=len(old_blocks)):
                     self._rollback(ancestor_number, old_blocks)
-                with span("reorg.adopt"):
+                with span("reorg.adopt", blocks=len(blocks)):
                     self._adopt(blocks, import_fn)
                 fault_point("reorg.finalize")
             except Exception:
@@ -392,6 +406,19 @@ class ReorgManager:
                   orphans: list, adopted: List[Block],
                   removed_hits: list) -> None:
         recycled = 0
+        if JOURNEY.enabled:
+            # re-inclusion pages: a retracted tx that was mined again on
+            # the winning branch closes the retract->reinclude arc
+            retracted = {
+                stx.hash for b in old_blocks
+                for stx in b.body.transactions
+            }
+            for b in adopted:
+                for stx in b.body.transactions:
+                    if stx.hash in retracted:
+                        JOURNEY.record(stx.hash, "reorg.reinclude",
+                                       via="mined",
+                                       block=b.header.number)
         if self.txpool is not None:
             for b in adopted:
                 # adopted-branch txs leave the pool, same as every
@@ -407,6 +434,11 @@ class ReorgManager:
                 try:
                     if self.txpool.add(stx):
                         recycled += 1
+                        if JOURNEY.enabled:
+                            # pool residence IS the re-inclusion state
+                            # for orphaned-only txs (awaiting re-mining)
+                            JOURNEY.record(stx.hash, "reorg.reinclude",
+                                           via="pool")
                 except ValueError:
                     pass
         for fn in list(self._listeners):

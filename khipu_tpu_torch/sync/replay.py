@@ -20,9 +20,17 @@ while the driver executes the next window. Each stage boundary is a
 chaos seam (``collector.seal``, ``collector.collect``,
 ``collector.persist``, ``collector.save``, ``collector.commit``): a
 ``die`` there stops the stage thread as a process death would, and
-``recover`` settles what it left. The transaction passport
-(``JOURNEY``), the movement ledger, the tracer and the serving read view
-are not ported yet (ROADMAP).
+``recover`` settles what it left.
+
+The observability plane rides the same path (``config.observability``,
+off by default): the driver's tracer (``ReplayDriver(tracer=)``) is
+active on the calling thread and on each stage thread while it runs its
+job, and the driver's ``window.seal`` span token rides each job's
+closures, so ``window.pack`` / ``collect`` / ``persist`` / ``save`` are
+its children across threads; the movement ledger (``LEDGER``) tags each
+crossing with its window and phase; the transaction passport
+(``JOURNEY``) stamps ``ingress``, ``seal``, ``journal.intent`` and
+``durable``. The serving read view is not ported yet (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -48,7 +56,17 @@ from khipu_tpu_torch.domain.difficulty import calc_difficulty
 from khipu_tpu_torch.evm.config import for_block
 from khipu_tpu_torch.ledger.ledger import execute_block
 from khipu_tpu_torch.ledger.window import WindowCommitter
-from khipu_tpu_torch.observability import REGISTRY, event, span
+from khipu_tpu_torch.observability.journey import JOURNEY, current_node
+from khipu_tpu_torch.observability.profiler import HOST, LEDGER
+from khipu_tpu_torch.observability.registry import REGISTRY
+from khipu_tpu_torch.observability.trace import (
+    Tracer,
+    apply_config,
+    event,
+    span,
+    use_tracer,
+)
+from khipu_tpu_torch.observability.trace import tracer as _default_tracer
 from khipu_tpu_torch.sync.prefetch import (
     SenderPrefetcher,
     recover_block_senders,
@@ -476,6 +494,10 @@ class ReplayDriver:
     hashes there when ``sync.sender_batch_hash`` is on. ``device="cpu"``
     runs the plain versions. Without ``device_commit`` the commit is the
     host fold (serial) or the host level loop (windowed).
+
+    ``tracer``: the ring this driver's spans go to (the process tracer
+    by default); ``config.observability`` enables it, the movement
+    ledger and the journey board.
     """
 
     def __init__(
@@ -486,9 +508,14 @@ class ReplayDriver:
         validate_headers: bool = True,
         device_commit: bool = False,
         device=None,
+        tracer: Optional[Tracer] = None,
     ):
         self.blockchain = blockchain
         self.config = config
+        # per-driver recorder: a driver handed its own Tracer records
+        # there; the default is the process instance
+        self.tracer = tracer if tracer is not None else _default_tracer
+        apply_config(config.observability, self.tracer)
         self.log = log
         self.device = resolve_device(device)
         self.header_validator = BlockHeaderValidator(
@@ -546,8 +573,9 @@ class ReplayDriver:
         else:
             source = iter(blocks)
         try:
-            for block in source:
-                self._execute_and_insert(block, stats)
+            with use_tracer(self.tracer):
+                for block in source:
+                    self._execute_and_insert(block, stats)
         finally:
             if prefetcher is not None:
                 prefetcher.close()
@@ -558,6 +586,16 @@ class ReplayDriver:
 
     def replay_windowed(self, blocks: Iterable[Block],
                         window_size: int) -> ReplayStats:
+        """The windowed replay with THIS driver's tracer active on the
+        calling thread (each stage job activates it on its own thread —
+        the tracer rides the closures like the seal token), so two
+        drivers in one process record to their own rings. See
+        ``_replay_windowed``."""
+        with use_tracer(self.tracer):
+            return self._replay_windowed(blocks, window_size)
+
+    def _replay_windowed(self, blocks: Iterable[Block],
+                         window_size: int) -> ReplayStats:
         """Window-batched PIPELINED replay: execute W blocks against one
         open deferred session, seal the window (the driver's close-out
         and journal intent), then execute the NEXT window's transactions
@@ -634,8 +672,10 @@ class ReplayDriver:
         if sync.adaptive_commit and self.hasher is not None:
             from khipu_tpu_torch.sync.adaptive import AdaptiveCommitController
 
-            adaptive = AdaptiveCommitController(sync, device_cap=True,
-                                                device=dev)
+            # the probe is seal-path machinery: bill it to the seal phase
+            with LEDGER.context(window=0, phase="seal"):
+                adaptive = AdaptiveCommitController(sync, device_cap=True,
+                                                    device=dev)
         self.adaptive = adaptive
 
         def make_committer(parent_root: bytes) -> WindowCommitter:
@@ -737,82 +777,125 @@ class ReplayDriver:
                 return torch.cuda.device(dev)
             return contextlib.nullcontext()
 
-        def make_stage_jobs(cm: WindowCommitter, job, results, intent_seq):
+        def make_stage_jobs(cm: WindowCommitter, job, results, seal_tok,
+                            intent_seq):
             # the four per-stage closures one window job flows through,
-            # each on its own stage thread, strictly FIFO within a stage
+            # each on its own stage thread, strictly FIFO within a stage.
+            # ``seal_tok`` (the driver's window.seal span id) rides the
+            # closures across the queues, so each stage span is the
+            # seal's child across threads (flow arrows in the Chrome
+            # dump); the driver's tracer rides the same way — a stage
+            # thread has no binding of its own
             lo, hi = results[0][0].number, results[-1][0].number
+            tr = self.tracer
 
             def seal_fn():
                 # pack scan + dispatch build + upload + K5 launch, while
                 # the driver executes the next window; the journal intent
                 # was written before this job existed and pack mutates
                 # memory only. A rule at any collector.* seam models a
-                # failure or death at that phase of the job
-                fault_point("collector.seal")
-                with on_device():
-                    t0 = time.perf_counter()
-                    with span("window.pack"):
-                        cm.pack_and_dispatch(job)
-                    ph["seal_bg"] += time.perf_counter() - t0
+                # failure or death at that phase of the job. The ledger
+                # phase stays "seal" so the cost model bills the
+                # sub-phases to the seal family
+                with use_tracer(tr):
+                    fault_point("collector.seal")
+                    with on_device():
+                        t0 = time.perf_counter()
+                        with span("window.pack", parent=seal_tok,
+                                  block_lo=lo, block_hi=hi), \
+                                LEDGER.context(window=lo, phase="seal"):
+                            cm.pack_and_dispatch(job)
+                        ph["seal_bg"] += time.perf_counter() - t0
 
             def collect_fn():
-                fault_point("collector.collect")
-                with on_device():
-                    t0 = time.perf_counter()
-                    with span("window.collect"):
-                        # root checks fetch ONLY the per-block root
-                        # digests (32 B x blocks); the live nodes land in
-                        # the device mirror card to card
-                        cm.collect_roots(job)  # raises WindowMismatch
-                        cm.admit_mirror(job)
-                    ph["collect_bg"] += time.perf_counter() - t0
+                with use_tracer(tr):
+                    fault_point("collector.collect")
+                    with on_device():
+                        t0 = time.perf_counter()
+                        with span("window.collect", parent=seal_tok,
+                                  block_lo=lo, block_hi=hi), \
+                                LEDGER.context(window=lo, phase="collect"):
+                            # root checks fetch ONLY the per-block root
+                            # digests (32 B x blocks); the live nodes
+                            # land in the device mirror card to card
+                            cm.collect_roots(job)  # raises WindowMismatch
+                            cm.admit_mirror(job)
+                        ph["collect_bg"] += time.perf_counter() - t0
 
             def persist_fn():
-                fault_point("collector.persist")
-                with on_device():
-                    t0 = time.perf_counter()
-                    with span("window.persist"):
-                        cm.persist(job)
-                    ph["persist_bg"] += time.perf_counter() - t0
+                with use_tracer(tr):
+                    fault_point("collector.persist")
+                    with on_device():
+                        t0 = time.perf_counter()
+                        with span("window.persist", parent=seal_tok,
+                                  block_lo=lo, block_hi=hi,
+                                  live=len(job.live)), \
+                                LEDGER.context(window=lo, phase="persist"):
+                            cm.persist(job)
+                        ph["persist_bg"] += time.perf_counter() - t0
 
             def save_fn():
-                t0 = time.perf_counter()
-                n_blocks = txs = gas = 0
-                with span("window.save"):
-                    for block, result in results:
-                        td = (
-                            self.blockchain.get_total_difficulty(
-                                block.number - 1
+                with use_tracer(tr):
+                    t0 = time.perf_counter()
+                    n_blocks = txs = gas = 0
+                    with span("window.save", parent=seal_tok,
+                              block_lo=lo, block_hi=hi,
+                              blocks=len(results)), \
+                            LEDGER.context(window=lo, phase="save"):
+                        for block, result in results:
+                            td = (
+                                self.blockchain.get_total_difficulty(
+                                    block.number - 1
+                                )
+                                or 0
+                            ) + block.header.difficulty
+                            # world=None: the window persisted the nodes
+                            t_save = time.perf_counter()
+                            self.blockchain.save_block(
+                                block, result.receipts, td, world=None
                             )
-                            or 0
-                        ) + block.header.difficulty
-                        # world=None: the window persisted the nodes
-                        self.blockchain.save_block(
-                            block, result.receipts, td, world=None
-                        )
-                        fault_point("collector.save")
-                        n_blocks += 1
-                        txs += result.stats.tx_count
-                        gas += result.gas_used
-                    # the commit mark is the job's LAST mutation: a
-                    # window is durable only after persist + save
-                    if intent_seq is not None:
-                        fault_point("collector.commit")
-                        journal.log_commit(intent_seq)
-                    if self.log is not None:
-                        self.log(
-                            f"Committed window [{lo}..{hi}] "
-                            f"({len(results)} blocks) in one batched "
-                            "device pass"
-                        )
-                    # stats land ONLY here, after the commit mark: a torn
-                    # job re-run after a collector death stays idempotent
-                    stats.blocks += n_blocks
-                    stats.txs += txs
-                    stats.gas += gas
-                    for _, result in results:
-                        stats.add_exec(result.stats)
-                ph["save_bg"] += time.perf_counter() - t0
+                            # host-side persistence: classification
+                            # traffic for window_report, never a device
+                            # crossing
+                            LEDGER.record(
+                                "block.save", HOST, 0,
+                                duration=time.perf_counter() - t_save,
+                            )
+                            fault_point("collector.save")
+                            n_blocks += 1
+                            txs += result.stats.tx_count
+                            gas += result.gas_used
+                        # the commit mark is the job's LAST mutation: a
+                        # window is durable only after persist + save
+                        if intent_seq is not None:
+                            fault_point("collector.commit")
+                            journal.log_commit(intent_seq)
+                        if JOURNEY.enabled:
+                            # persist + save done, commit mark down: the
+                            # crash-survivable point, the passport's
+                            # durable page
+                            for b, _r in results:
+                                for stx in b.body.transactions:
+                                    JOURNEY.record(
+                                        stx.hash, "durable",
+                                        block=b.header.number,
+                                    )
+                        if self.log is not None:
+                            self.log(
+                                f"Committed window [{lo}..{hi}] "
+                                f"({len(results)} blocks) in one batched "
+                                "device pass"
+                            )
+                        # stats land ONLY here, after the commit mark: a
+                        # torn job re-run after a collector death stays
+                        # idempotent
+                        stats.blocks += n_blocks
+                        stats.txs += txs
+                        stats.gas += gas
+                        for _, result in results:
+                            stats.add_exec(result.stats)
+                        LEDGER.note_blocks(n_blocks)
+                    ph["save_bg"] += time.perf_counter() - t0
 
             return (seal_fn, collect_fn, persist_fn, save_fn)
 
@@ -822,20 +905,40 @@ class ReplayDriver:
             hi = results_cur[-1][0].number
             t0 = time.perf_counter()
             intent_seq = None
-            with span("window.seal"):
+            LEDGER.note_window(lo, lo, hi)
+            with span("window.seal", block_lo=lo, block_hi=hi) as seal_sp, \
+                    LEDGER.context(window=lo, phase="seal"):
                 job = committer.seal()
+                if JOURNEY.enabled:
+                    for b, _r in results_cur:
+                        for stx in b.body.transactions:
+                            JOURNEY.record(stx.hash, "seal",
+                                           window_lo=lo, window_hi=hi)
                 if journal is not None:
                     # WAL barrier: the intent is durable BEFORE the job
                     # can run (submit enqueues it strictly afterwards)
-                    with span("seal.journal"):
+                    j0 = time.perf_counter()
+                    with span("seal.journal", block_lo=lo, block_hi=hi):
                         intent_seq = journal.log_intent(
                             lo, hi, window_parent_root,
                             [b.header.state_root for b, _ in results_cur],
                         )
+                    # host-side classification event so the window
+                    # report's seal row decomposes the journal's cost
+                    LEDGER.record("seal.journal", HOST, 0,
+                                  duration=time.perf_counter() - j0)
+                    if JOURNEY.enabled:
+                        # the intent is on disk: from here a crash
+                        # replays the window forward
+                        for b, _r in results_cur:
+                            for stx in b.body.transactions:
+                                JOURNEY.record(stx.hash, "journal.intent",
+                                               seq=intent_seq)
                 run_fns = make_stage_jobs(committer, job, results_cur,
-                                          intent_seq)
+                                          seal_sp.token, intent_seq)
             ph["seal"] += time.perf_counter() - t0
-            with span("pipeline.stall"):
+            with span("pipeline.stall", block_lo=lo, block_hi=hi,
+                      kind="submit"):
                 ph["collect"] += submit_job(run_fns)
                 window_parent_root = results_cur[-1][0].header.state_root
                 results_cur = []
@@ -845,55 +948,69 @@ class ReplayDriver:
         try:
             for block in itertools.chain((first,), blocks):
                 header = block.header
-                t0 = time.perf_counter()
-                # a no-op sweep when the prefetch thread already filled
-                # the per-object memos
-                recover_block_senders(
-                    block.body.transactions, sync.sender_cache_entries,
-                    sync.sender_batch_hash, dev,
-                )
-                ph["senders"] += time.perf_counter() - t0
-                t0 = time.perf_counter()
-                if self.validate_headers:
-                    self.header_validator.validate(header, prev)
-                BlockValidator.validate_body(block)
-                OmmersValidator.validate(
-                    self.blockchain, block,
-                    header_lookup=window_headers_full.get,
-                    block_lookup=window_blocks.get,
-                    header_validator=(
-                        self.header_validator
-                        if self.validate_headers else None
-                    ),
-                )
-                if not for_block(header.number,
-                                 self.config.blockchain).byzantium:
-                    raise WindowNeedsByzantium(
-                        "window commits need Byzantium receipts "
-                        "(pre-Byzantium receipts embed per-tx roots)"
+                with span("window.build", block=header.number,
+                          txs=len(block.body.transactions)):
+                    t0 = time.perf_counter()
+                    # a no-op sweep when the prefetch thread already
+                    # filled the per-object memos
+                    with span("senders", block=header.number):
+                        recover_block_senders(
+                            block.body.transactions,
+                            sync.sender_cache_entries,
+                            sync.sender_batch_hash, dev,
+                        )
+                    ph["senders"] += time.perf_counter() - t0
+                    if JOURNEY.enabled:
+                        # passport ingress for imported txs: the first
+                        # sighting wins, so a reorg re-import keeps the
+                        # original stamp
+                        for stx in block.body.transactions:
+                            JOURNEY.record(stx.hash, "ingress",
+                                           source="import",
+                                           block=header.number)
+                    t0 = time.perf_counter()
+                    if self.validate_headers:
+                        self.header_validator.validate(header, prev)
+                    BlockValidator.validate_body(block)
+                    OmmersValidator.validate(
+                        self.blockchain, block,
+                        header_lookup=window_headers_full.get,
+                        block_lookup=window_blocks.get,
+                        header_validator=(
+                            self.header_validator
+                            if self.validate_headers else None
+                        ),
                     )
-                ph["validate"] += time.perf_counter() - t0
-                t0 = time.perf_counter()
-                result = execute_block(
-                    block,
-                    b"",  # the open session IS the parent state
-                    committer.make_world,
-                    self.config,
-                    validate=True,
-                    check_root=False,  # deferred to the collect stage
-                    # no pool thread may read through the mirror
-                    exec_pool=mirror is None,
-                    device=dev,
-                )
-                ph["execute"] += time.perf_counter() - t0
-                t0 = time.perf_counter()
-                committer.commit_block(result.world, header)
-                window_headers[header.number] = header.hash
-                window_headers_full[header.number] = header
-                window_blocks[header.number] = block
-                results_cur.append((block, result))
-                prev = header
-                ph["commit"] += time.perf_counter() - t0
+                    if not for_block(header.number,
+                                     self.config.blockchain).byzantium:
+                        raise WindowNeedsByzantium(
+                            "window commits need Byzantium receipts "
+                            "(pre-Byzantium receipts embed per-tx roots)"
+                        )
+                    ph["validate"] += time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    with span("execute", block=header.number,
+                              txs=len(block.body.transactions)):
+                        result = execute_block(
+                            block,
+                            b"",  # the open session IS the parent state
+                            committer.make_world,
+                            self.config,
+                            validate=True,
+                            check_root=False,  # deferred to collect
+                            # no pool thread may read through the mirror
+                            exec_pool=mirror is None,
+                            device=dev,
+                        )
+                    ph["execute"] += time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    committer.commit_block(result.world, header)
+                    window_headers[header.number] = header.hash
+                    window_headers_full[header.number] = header
+                    window_blocks[header.number] = block
+                    results_cur.append((block, result))
+                    prev = header
+                    ph["commit"] += time.perf_counter() - t0
                 if len(results_cur) >= window_size:
                     # NO barrier before seal: cross-window refs resolve
                     # from the in-flight jobs' device digests; the only
@@ -904,7 +1021,7 @@ class ReplayDriver:
                     if blocks_since_reset >= epoch:
                         # drain, then restart the session from the last
                         # validated root (memory bound)
-                        with span("pipeline.stall"):
+                        with span("pipeline.stall", kind="epoch-drain"):
                             ph["collect"] += drain_pipeline()
                         stats.persist_bytes += committer.persist_bytes
                         stats.persist_store_seconds += (
@@ -922,7 +1039,7 @@ class ReplayDriver:
                                 del d[n]
             if results_cur:
                 seal_and_submit()
-            with span("pipeline.stall"):
+            with span("pipeline.stall", kind="final-drain"):
                 ph["collect"] += drain_pipeline()
         except BaseException:
             # a driver-side failure (validation, execution, or a
@@ -959,6 +1076,14 @@ class ReplayDriver:
         parent = self.blockchain.get_header_by_number(header.number - 1)
         if parent is None:
             raise ValueError(f"no parent for block {header.number}")
+        # passport stamps for the per-block import path (live sync, the
+        # reorg's adoption); a replica's tail re-execution (the serving
+        # plane, not ported yet) stamps only its own page
+        journeys = JOURNEY.enabled and current_node() == "primary"
+        if journeys:
+            for stx in block.body.transactions:
+                JOURNEY.record(stx.hash, "ingress", source="import",
+                               block=header.number)
         if self.validate_headers:
             self.header_validator.validate(header, parent)
         BlockValidator.validate_body(block)
@@ -985,6 +1110,9 @@ class ReplayDriver:
         self.blockchain.save_block(
             block, result.receipts, td, result.world, hasher=self.hasher
         )
+        if journeys:
+            for stx in block.body.transactions:
+                JOURNEY.record(stx.hash, "durable", block=header.number)
         t3 = time.perf_counter()
         commit = result.stats.commit_seconds
         ph["validate"] += t1 - t0
@@ -1019,9 +1147,10 @@ def _timed_pull(prefetcher: SenderPrefetcher, phases: dict) -> Iterator[Block]:
     it = iter(prefetcher)
     while True:
         t0 = time.perf_counter()
-        try:
-            block = next(it)
-        except StopIteration:
-            return
+        with span("pipeline.stall", kind="prefetch"):
+            try:
+                block = next(it)
+            except StopIteration:
+                return
         phases["senders"] += time.perf_counter() - t0
         yield block

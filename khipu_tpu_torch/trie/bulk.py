@@ -22,7 +22,7 @@ from khipu_tpu_torch.base.keccak import keccak256
 from khipu_tpu_torch.base.nibbles import bytes_to_nibbles, hp_encode
 from khipu_tpu_torch.base.rlp import rlp_encode
 from khipu_tpu_torch.device import resolve_device
-from khipu_tpu_torch.observability import span as _span
+from khipu_tpu_torch.observability.trace import span as _span
 
 Hasher = Callable[[Sequence[bytes]], List[bytes]]
 

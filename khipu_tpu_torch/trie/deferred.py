@@ -27,7 +27,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from khipu_tpu_torch.base.rlp import rlp_decode, rlp_encode
-from khipu_tpu_torch.observability import span as _span
+from khipu_tpu_torch.observability.trace import span as _span
 from khipu_tpu_torch.trie.bulk import Hasher, resolve_hasher
 from khipu_tpu_torch.trie.mpt import BLANK, EMPTY_TRIE_HASH, MerklePatriciaTrie
 

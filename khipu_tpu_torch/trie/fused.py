@@ -36,6 +36,7 @@ kernel K6 on the card.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -43,7 +44,9 @@ import torch
 
 from khipu_tpu_torch.chaos import fault_point
 from khipu_tpu_torch.device import resolve_device
-from khipu_tpu_torch.observability import REGISTRY, span as _span
+from khipu_tpu_torch.observability.profiler import D2H, H2D, HOST, LEDGER
+from khipu_tpu_torch.observability.registry import REGISTRY
+from khipu_tpu_torch.observability.trace import span as _span
 from khipu_tpu_torch.ops import keccak_torch
 from khipu_tpu_torch.ops.keccak_torch import RATE
 from khipu_tpu_torch.trie import exec_validate_cuda, fixpoint_cuda
@@ -87,9 +90,10 @@ def _pow2(n: int, floor: int = 1) -> int:
 
 
 class PackedClass:
-    """One rate class of a packed window, on the device: ``enc``
-    u8[nrows, nb*136] (real rows, then one spare filler row) and
-    ``base``, the class's first row in the window's digest tensor."""
+    """One rate class of a packed window: ``enc`` u8[nrows, nb*136]
+    (real rows, then one spare filler row; numpy after ``pack_host``, a
+    device tensor after ``upload_packed``) and ``base``, the class's
+    first row in the window's digest tensor."""
 
     __slots__ = ("nb", "keys", "base", "enc", "aidx", "admit_keys",
                  "admit_lens")
@@ -130,12 +134,14 @@ class LevelPlan:
 
 
 def level_plan(parent: np.ndarray, toff: np.ndarray, tchild: np.ndarray,
-               total_rows: int, device) -> LevelPlan:
+               total_rows: int, device=None) -> LevelPlan:
     """Levels, order and the CSR of the triples ``(parent, toff,
     tchild)``, which must be sorted by parent. Vectorised: each pass of
     ``np.maximum.reduceat`` over the parent-sorted triples raises every
     row to 1 + its children's levels, and the levels stop changing after
-    depth + 1 passes. Raises AssertionError on a cycle."""
+    depth + 1 passes. Raises AssertionError on a cycle. The device
+    tensors are uploaded to ``device`` (``upload_packed`` does it later
+    when ``device`` is None)."""
     parent = np.asarray(parent, dtype=np.int64)
     tchild = np.asarray(tchild, dtype=np.int64)
     if len(parent) and np.any(np.diff(parent) < 0):
@@ -167,27 +173,64 @@ def level_plan(parent: np.ndarray, toff: np.ndarray, tchild: np.ndarray,
     )
     plan.toff = np.asarray(toff, dtype=np.int32)
     plan.tchild = tchild.astype(np.int32)
-
-    def up(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
-
-    plan.d_order, plan.d_level_ptr, plan.d_tptr = (
-        up(order), up(level_ptr), up(tptr)
-    )
-    plan.d_toff, plan.d_tchild = up(plan.toff), up(plan.tchild)
+    plan.d_order = plan.d_level_ptr = plan.d_tptr = None
+    plan.d_toff = plan.d_tchild = None
+    if device is not None:
+        upload_packed([], plan, device)
     return plan
+
+
+def _plan_arrays(plan: LevelPlan) -> List[np.ndarray]:
+    """The host arrays behind the plan's device tensors, as int32."""
+    return [np.ascontiguousarray(a, np.int32) for a in (
+        plan.order, plan.level_ptr, plan.tptr, plan.toff, plan.tchild)]
+
+
+def packed_nbytes(classes: List[PackedClass], plan: LevelPlan) -> int:
+    """Bytes of the host buffers ``upload_packed`` sends to the device:
+    every class's padded encodings and admit rows, and the level plan's
+    five int32 arrays."""
+    n = sum(c.enc.nbytes for c in classes)
+    n += sum(c.aidx.nbytes for c in classes if c.aidx is not None)
+    return n + sum(a.nbytes for a in _plan_arrays(plan))
+
+
+def upload_packed(classes: List[PackedClass], plan: LevelPlan,
+                  device) -> None:
+    """Move a host pack to ``device`` in place: each class's ``enc``
+    and ``aidx`` become tensors there, and the plan gets its ``d_*``
+    tensors."""
+    for c in classes:
+        c.enc = torch.from_numpy(c.enc).to(device)
+        if c.aidx is not None:
+            c.aidx = torch.from_numpy(c.aidx).to(device)
+    plan.d_order, plan.d_level_ptr, plan.d_tptr, plan.d_toff, plan.d_tchild = (
+        torch.from_numpy(a).to(device) for a in _plan_arrays(plan)
+    )
 
 
 def pack(to_resolve, prefix, device, ext_pos=None, n_ext=0,
          admit_live=None
          ) -> Tuple[List[PackedClass], Dict[bytes, int], int, LevelPlan]:
-    """Host pack + upload: bucket the encodings by rate class, pad them,
-    scan each for the placeholder prefix and build the triples and their
-    level plan. Returns (classes, dpos: ph -> global row, total_rows,
-    plan). ``ext_pos`` maps a placeholder outside ``to_resolve`` to its
-    row of the resolved-input tile, which holds ``n_ext`` rows; an
-    ``ExtRows`` assigns the rows as the scan meets the refs (pass
-    ``n_ext=None``)."""
+    """Host pack + upload: ``pack_host``, then ``upload_packed`` to
+    ``device``. Returns (classes, dpos: ph -> global row, total_rows,
+    plan)."""
+    classes, dpos, total_rows, plan = pack_host(
+        to_resolve, prefix, ext_pos, n_ext, admit_live
+    )
+    upload_packed(classes, plan, device)
+    return classes, dpos, total_rows, plan
+
+
+def pack_host(to_resolve, prefix, ext_pos=None, n_ext=0, admit_live=None
+              ) -> Tuple[List[PackedClass], Dict[bytes, int], int, LevelPlan]:
+    """Host pack: bucket the encodings by rate class, pad them, scan
+    each for the placeholder prefix and build the triples and their
+    level plan, all in host memory (numpy; ``upload_packed`` moves them).
+    Returns (classes, dpos: ph -> global row, total_rows, plan).
+    ``ext_pos`` maps a placeholder outside ``to_resolve`` to its row of
+    the resolved-input tile, which holds ``n_ext`` rows; an ``ExtRows``
+    assigns the rows as the scan meets the refs (pass ``n_ext=None``)."""
     buckets: Dict[int, List[bytes]] = {}
     for ph in to_resolve:
         buckets.setdefault(len(to_resolve[ph]) // RATE + 1, []).append(ph)
@@ -239,7 +282,7 @@ def pack(to_resolve, prefix, device, ext_pos=None, n_ext=0,
         )
         buf[np.arange(npad), lens] ^= 0x01  # multi-rate pad (a fixed
         buf[:, width - 1] ^= 0x80  # region: substitution never touches it)
-        c.enc = torch.from_numpy(buf).to(device)
+        c.enc = buf
         c.aidx, c.admit_keys, c.admit_lens = None, None, None
         if admit_live:
             live = [r for r, ph in enumerate(c.keys) if ph in admit_live]
@@ -249,13 +292,12 @@ def pack(to_resolve, prefix, device, ext_pos=None, n_ext=0,
                 nadmit = _pow2(-(-len(live) // ADMIT_TILE)) * ADMIT_TILE
                 aidx = np.full(nadmit, npad - 1, dtype=np.int64)
                 aidx[: len(live)] = live
-                c.aidx = torch.from_numpy(aidx).to(device)
+                c.aidx = aidx
                 pad = nadmit - len(live)
                 c.admit_keys = [c.keys[r] for r in live] + [None] * pad
                 c.admit_lens = [int(lens[r]) for r in live] + [0] * pad
     sub_np = np.asarray(subs, dtype=np.int64).reshape(-1, 3)
-    plan = level_plan(sub_np[:, 0], sub_np[:, 1], sub_np[:, 2], total_rows,
-                      device)
+    plan = level_plan(sub_np[:, 0], sub_np[:, 1], sub_np[:, 2], total_rows)
     return classes, dpos, total_rows, plan
 
 
@@ -376,8 +418,11 @@ class FusedJob:
             [self.dpos[r] for r in present], dtype=torch.long,
             device=self.digests.device,
         )
-        with _span("fused.rootcheck"):
-            blob = self.digests.index_select(0, rows).cpu().numpy().tobytes()
+        sub = self.digests.index_select(0, rows)  # gathered on the device
+        with _span("fused.rootcheck", rows=len(present)):
+            with LEDGER.transfer("seal.rootcheck", D2H,
+                                 sub.numel() * sub.element_size()):
+                blob = sub.cpu().numpy().tobytes()
         for i, r in enumerate(present):
             out[r] = blob[32 * i : 32 * i + 32]
         return out
@@ -399,10 +444,15 @@ class FusedJob:
         if self._host is None:
             return {}
         fault_point("fused.collect")
-        with _span("fused.collect"):
-            if self._event is not None:
-                self._event.synchronize()
-            blob = self._host.numpy().tobytes()
+        host = self._host
+        with _span("fused.collect", rows=int(host.shape[0])):
+            # the copy back began at launch (_start_copy); the wait is
+            # the crossing the movement ledger classifies
+            with LEDGER.transfer("fused.collect", D2H,
+                                 host.numel() * host.element_size()):
+                if self._event is not None:
+                    self._event.synchronize()
+            blob = host.numpy().tobytes()
             out: Dict[bytes, bytes] = {}
             for rows, base in self.class_rows:
                 o = base * 32
@@ -428,12 +478,14 @@ class ExtRows:
     ``tile(device)`` then builds u8[n, 32] in row order: device rows by
     ``index_select`` card to card, host digests by one upload."""
 
-    __slots__ = ("lookup", "pos", "src")
+    __slots__ = ("lookup", "pos", "src", "span_tags")
 
-    def __init__(self, lookup):
+    def __init__(self, lookup, span_tags: Optional[dict] = None):
         self.lookup = lookup
         self.pos: Dict[bytes, int] = {}
         self.src: list = []
+        # extra tags of the seal.alias_gather span (a window's range)
+        self.span_tags = span_tags or {}
 
     def get(self, ref: bytes) -> Optional[int]:
         row = self.pos.get(ref)
@@ -464,7 +516,14 @@ class ExtRows:
         def idx(rows):
             return torch.tensor(rows, dtype=torch.long, device=device)
 
-        with _span("seal.alias_gather"):
+        # only the row indices and the host digests cross to the device;
+        # the in-flight rows are gathered card to card
+        nbytes = 8 * (len(self.src) + sum(len(g[2]) for g in
+                                          groups.values()))
+        nbytes += 32 * len(host_rows)
+        with _span("seal.alias_gather", refs=len(self.src),
+                   **self.span_tags), \
+                LEDGER.transfer("seal.alias_gather", H2D, nbytes):
             for digests, rows, src_rows in groups.values():
                 out.index_copy_(0, idx(rows),
                                 digests.index_select(0, idx(src_rows)))
@@ -495,6 +554,7 @@ def fused_submit(
     depth: int = None,
     ext=None,
     admit_live=None,
+    span_tags: Optional[dict] = None,
 ) -> FusedJob:
     """Pack, upload and enqueue the fixpoint that resolves placeholder ->
     real Keccak-256 hash for every entry of ``to_resolve`` (placeholder
@@ -516,20 +576,31 @@ def fused_submit(
     ``admit_live``: optional set of placeholders whose FINAL encodings
     and digests the caller wants gathered into whole mirror tiles
     (``FusedJob.admit_tiles``).
+
+    ``span_tags``: extra tags of this dispatch's spans — the window
+    committer passes its window's ``block_lo`` / ``block_hi``, so
+    ``fused.dispatch`` joins each block's lifecycle record and the seal
+    sub-phases join the window's cost rows (the JAX package's carry no
+    block range).
     """
     dev = resolve_device(device)
     # chaos seam: a ``raise`` here models a runtime dispatch failure,
     # which stops the windowed replay (the port hashes no window on the
     # host after a device error; the JAX package degrades that window)
     fault_point("fused.dispatch")
-    with _span("fused.dispatch"):
+    with _span(
+        "fused.dispatch",
+        nodes=len(to_resolve),
+        admit=len(admit_live) if admit_live else 0,
+        **(span_tags or {}),
+    ):
         return _fused_submit(
-            to_resolve, prefix, dev, depth, ext, admit_live
+            to_resolve, prefix, dev, depth, ext, admit_live, span_tags or {}
         )
 
 
 def _fused_submit(to_resolve, prefix, dev, depth, ext,
-                  admit_live) -> FusedJob:
+                  admit_live, tags) -> FusedJob:
     if not to_resolve:
         return FusedJob(None, [])
     ext_dev = None
@@ -543,17 +614,31 @@ def _fused_submit(to_resolve, prefix, dev, depth, ext,
     else:
         ext_pos, n_ext = {}, 0
 
-    with _span("seal.dispatch_build"):
-        classes, dpos, total_rows, plan = pack(
-            to_resolve, prefix, dev, ext_pos, n_ext, admit_live,
+    build_t0 = time.perf_counter() if LEDGER.enabled else 0.0
+    with _span("seal.dispatch_build", nodes=len(to_resolve), **tags):
+        classes, dpos, total_rows, plan = pack_host(
+            to_resolve, prefix, ext_pos, n_ext, admit_live,
         )
+        # host->device upload = every host-built input buffer; the
+        # resolved-input tile is gathered card to card and its few host
+        # rows are billed to seal.alias_gather (ExtRows.tile)
+        up = packed_nbytes(classes, plan)
+    if LEDGER.enabled:
+        # host-side classification event: bytes of the input buffers the
+        # build step packed, with its wall duration
+        LEDGER.record("seal.dispatch_build", HOST, up,
+                      duration=time.perf_counter() - build_t0)
+    if depth is not None and depth < plan.nlevels:
+        raise ValueError(f"depth {depth} < the DAG's {plan.nlevels} levels")
     if ext_dev is None:
         ext_dev = (ext.tile(dev) if ext is not None else
                    torch.zeros((0, 32), dtype=torch.uint8, device=dev))
-    if depth is not None and depth < plan.nlevels:
-        raise ValueError(f"depth {depth} < the DAG's {plan.nlevels} levels")
-    with _span("seal.upload"):
-        digests = resolve_levels(classes, total_rows, ext_dev, plan)
+    # the upload from pageable host memory and K5's launch: the span and
+    # the crossing time the enqueue, not the device's work
+    with _span("seal.upload", nbytes=up, **tags):
+        with LEDGER.transfer("seal.upload", H2D, up):
+            upload_packed(classes, plan, dev)
+            digests = resolve_levels(classes, total_rows, ext_dev, plan)
     FUSED_GAUGES["dispatches"] += 1
     FUSED_GAUGES["last_nodes"] = len(to_resolve)
     FUSED_GAUGES["last_levels"] = plan.nlevels
@@ -637,10 +722,18 @@ def fused_exec_validate(tx_nonces, acct_nonces, balances, upfronts,
         pack_exec_rows(tx_nonces, acct_nonces, balances, upfronts)
         .view(np.int32)
     )
-    if dev.type == "cpu":
-        ok = exec_validate_plain(rows)
-    elif dev.type == "cuda":
-        ok = exec_validate_cuda.validate_rows(rows.to(dev)).cpu()
-    else:
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
+    # the crossings are metered on either device (on the CPU the copies
+    # are no-ops), so the ledger reads alike wherever the replay runs
+    with LEDGER.transfer("exec.batch_device", H2D,
+                         rows.numel() * rows.element_size()):
+        rows_d = rows.to(dev)
+    if dev.type == "cpu":
+        mask = exec_validate_plain(rows_d)
+    else:
+        mask = exec_validate_cuda.validate_rows(rows_d)
+    with LEDGER.transfer("exec.batch_device", D2H,
+                         mask.numel() * mask.element_size()):
+        ok = mask.cpu()
     return ok.numpy().astype(bool)

@@ -6,8 +6,8 @@ are removed as blocks are saved (RegularSyncService.scala:419); oldest
 entries evicted at capacity. Also the ommers pool counterpart
 (ommers/OmmersPool.scala:19, size 30).
 
-The port's copy of ``khipu_tpu.txpool``, without the transaction
-passport's stamps (ROADMAP A8).
+The port's copy of ``khipu_tpu.txpool``, with the transaction
+passport's stamps (``pool.admit``, ``pool.evict``, ``pool.reject``).
 """
 
 from __future__ import annotations
@@ -18,7 +18,8 @@ from typing import List, Optional
 
 from khipu_tpu_torch.domain.block_header import BlockHeader
 from khipu_tpu_torch.domain.transaction import SignedTransaction
-from khipu_tpu_torch.observability import REGISTRY
+from khipu_tpu_torch.observability.journey import JOURNEY
+from khipu_tpu_torch.observability.registry import REGISTRY
 
 
 class PendingTransactionsPool:
@@ -76,22 +77,35 @@ class PendingTransactionsPool:
                 return False
             slot = (stx.sender, stx.tx.nonce)
             pooled_hash = self._by_sender_nonce.get(slot)
+            replaced = False
             if pooled_hash is not None:
                 pooled = self._txs[pooled_hash]
                 if stx.tx.gas_price <= pooled.tx.gas_price:
                     self.rejected_underpriced += 1
+                    if JOURNEY.enabled:
+                        JOURNEY.record(stx.hash, "pool.reject",
+                                       reason="underpriced")
                     return False
                 del self._txs[pooled_hash]  # outbid: replace in place
                 del self._by_sender_nonce[slot]
                 self.replacements += 1
+                replaced = True
+                if JOURNEY.enabled:
+                    JOURNEY.record(pooled_hash, "pool.evict",
+                                   reason="replaced")
             while len(self._txs) >= self.capacity:
                 oldest_hash, oldest = self._txs.popitem(last=False)
                 oslot = (oldest.sender, oldest.tx.nonce)
                 if self._by_sender_nonce.get(oslot) == oldest_hash:
                     del self._by_sender_nonce[oslot]
                 self.evictions += 1
+                if JOURNEY.enabled:
+                    JOURNEY.record(oldest_hash, "pool.evict",
+                                   reason="capacity")
             self._txs[stx.hash] = stx
             self._by_sender_nonce[slot] = stx.hash
+            if JOURNEY.enabled:
+                JOURNEY.record(stx.hash, "pool.admit", replaced=replaced)
             self._arrivals.append(stx.hash)
             # bound the journal: keep the most recent 4x capacity
             if len(self._arrivals) > 4 * self.capacity:

@@ -134,11 +134,12 @@ def main() -> int:
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
-    from khipu_tpu_torch import observability, workloads
+    from khipu_tpu_torch import workloads
     from khipu_tpu_torch.domain.block import Block
     from khipu_tpu_torch.domain.blockchain import Blockchain
     from khipu_tpu_torch.evm.dispatch import VM_GAUGES
     from khipu_tpu_torch.ledger.schedule import reset_learner
+    from khipu_tpu_torch.observability.trace import tracer
     from khipu_tpu_torch.ops import build
     from khipu_tpu_torch.state import load_reference_nodes
     from khipu_tpu_torch.storage.datasource import MemoryKeyValueDataSource
@@ -161,17 +162,23 @@ def main() -> int:
         return not only or name in only
 
     def measure(name, fn, **extra):
-        observability.SPAN_TOTALS.clear()
-        observability.enable()
+        # every thread's spans, on the process tracer, for this run only
+        tracer.reset()
+        tracer.enable(capacity=1 << 20)
         frames0 = dict(VM_GAUGES)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        observability.enable(False)
+        tracer.disable()
         frames = {k: VM_GAUGES[k] - frames0[k] for k in frames0}
-        spans = {k: v[1] for k, v in observability.SPAN_TOTALS.items()}
+        if tracer.dropped:
+            raise RuntimeError(f"the span ring dropped {tracer.dropped}")
+        spans = {}
+        for s in tracer.snapshot():
+            spans[s.name] = spans.get(s.name, 0.0) + s.duration
+        tracer.reset()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()

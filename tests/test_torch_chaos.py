@@ -361,23 +361,27 @@ class TestFaultPlan:
         pt_chaos.fault_point("x")
 
     def test_fault_log_and_registry_counts(self):
-        from khipu_tpu_torch import observability
+        from khipu_tpu_torch.observability import registry, trace
 
         pt_chaos.fault_log.reset()
-        before = observability.EVENT_COUNTS.get("chaos.fault", 0)
+        ring = trace.Tracer()
+        ring.enable()
         plan = pt_chaos.FaultPlan(seed=0, rules=[pt_chaos.FaultRule(
             "m.one", "latency", latency_s=0.0, times=3)],
             sleep=lambda s: None)
-        with pt_chaos.active(plan):
+        with pt_chaos.active(plan), trace.use_tracer(ring):
             for _ in range(5):
                 pt_chaos.fault_point("m.one")
         snap = pt_chaos.fault_log.snapshot()
         assert snap == {"fired": 3, "byKind": {
             "raise": 0, "latency": 3, "corrupt": 0, "die": 0},
             "bySite": {"m.one": 3}}
-        assert observability.EVENT_COUNTS["chaos.fault"] == before + 3
+        # one chaos.fault instant event a fired fault, with its tags
+        assert [(s.name, s.tags) for s in ring.snapshot()] == [
+            ("chaos.fault", {"site": "m.one", "kind": "latency", "hit": h})
+            for h in (1, 2, 3)]
         samples = {(n, tuple(sorted(lab.items()))): v
-                   for n, _k, lab, v in observability.REGISTRY.collect()}
+                   for n, _k, lab, v in registry.REGISTRY._collected()}
         assert samples[("khipu_chaos_faults_fired_total", ())] == 3
         pt_chaos.fault_log.reset()
 

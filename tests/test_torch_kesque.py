@@ -37,7 +37,8 @@ from khipu_tpu.sync.chain_builder import ChainBuilder as JxChainBuilder
 from khipu_tpu.sync.replay import ReplayDriver as JxReplayDriver
 
 from khipu_tpu_torch import chaos as pt_chaos
-from khipu_tpu_torch import observability, workloads
+from khipu_tpu_torch import workloads
+from khipu_tpu_torch.observability.registry import REGISTRY
 from khipu_tpu_torch.base.keccak import keccak256
 from khipu_tpu_torch.domain.block import Block
 from khipu_tpu_torch.domain.blockchain import Blockchain, GenesisSpec
@@ -758,7 +759,7 @@ def test_registry_families(tmp_path):
                                       [b"\x02" * 32, b"\x03" * 32])
     stopped.stop()  # its journal's collector now reads closed files
     with pytest.raises(OSError):
-        observability.REGISTRY._collectors["journal"]()
+        REGISTRY._collectors["journal"]()
     ops = _workload(np.random.default_rng(RNG_SEED + 6), 4)
     samples = {}
     for name, (_, kmod) in PKG.items():
@@ -771,7 +772,7 @@ def test_registry_families(tmp_path):
             # one collector per name, the newest engine's; a collector
             # over a stopped store's closed files does not break the
             # scrape
-            collected = [s for s in observability.REGISTRY.collect()
+            collected = [s for s in REGISTRY._collected()
                          if s[0].startswith("khipu_kesque_")]
             assert collected == samples["port"]
     assert samples["port"] == samples["jax"]

@@ -408,22 +408,31 @@ def test_ragged_launch_count_survives_two_threads():
 
 def test_span_totals_survive_two_threads():
     """The driver and the prefetch thread time ``keccak.*`` spans at
-    once (here: both hashing batches on the CPU path)."""
+    once (here: both hashing batches on the CPU path): every span of
+    both threads lands in the process tracer's ring."""
+    from khipu_tpu_torch.observability.trace import tracer
     from khipu_tpu_torch.ops.keccak import keccak256_batch
 
-    observability.enable()
+    def count(name):
+        return sum(1 for s in tracer.snapshot() if s.name == name)
+
+    was_on, capacity = tracer._on, tracer.capacity
+    tracer.enable(capacity=1 << 17)
     try:
-        observability.SPAN_TOTALS.pop("test.two_threads", None)
-        observability.SPAN_TOTALS.pop("keccak.pack", None)
+        tracer.reset()
 
         def one():
             with observability.span("test.two_threads"):
                 pass
 
         _hammer(one, 20_000)
-        assert observability.SPAN_TOTALS["test.two_threads"][0] == 40_000
+        assert count("test.two_threads") == 40_000
         msgs = [os.urandom(40) for _ in range(4)]
         _hammer(lambda: keccak256_batch(msgs, "cpu"), 50)
-        assert observability.SPAN_TOTALS["keccak.pack"][0] == 100
+        assert count("keccak.pack") == 100
+        assert tracer.dropped == 0
     finally:
-        observability.enable(False)
+        tracer.reset()
+        tracer.enable(capacity=capacity)
+        if not was_on:
+            tracer.disable()

@@ -208,11 +208,11 @@ def test_parallel_builders_compile_once(tmp_path):
         "import sys; sys.path.insert(0, %r)\n"
         "from pathlib import Path\n"
         "from khipu_tpu_torch.native import build as b\n"
-        "from khipu_tpu_torch.observability import compile_log\n"
+        "from khipu_tpu_torch.observability.recorder import compile_log\n"
         "b.BUILD_DIR = Path(%r)\n"
         "b._compile('g++', b.GXX_FLAGS, [b.CSRC / 'keccak.cc'],\n"
         "           b.BUILD_DIR / 'libkeccak.so')\n"
-        "print(compile_log.events[-1][0])\n") % (
+        "print(compile_log.snapshot()['events'][-1]['kind'])\n") % (
             os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
             str(tmp_path))
     procs = [subprocess.Popen([sys.executable, "-c", code],
