@@ -1,8 +1,6 @@
 """Gameday invariant checkers (docs/gameday.md).
 
-The port's copy of ``khipu_tpu.chaos.invariants``, less
-``check_token_floor``: it reads the serving router's read tokens, and
-the serving plane is not ported yet (ROADMAP A10).
+The port's copy of ``khipu_tpu.chaos.invariants``.
 
 The reusable half of the gameday harness: every checker takes live
 objects (blockchains, replicas, the fleet router, a rebalancer) plus
@@ -19,6 +17,9 @@ composition:
 * ``retraction``   — a reorg-retracted block is retracted from EVERY
   serving replica's view, and each replica's chain is a hash-exact
   prefix of the primary's canonical chain.
+* ``token_floor``  — consistent-read tokens anchor to the canonical
+  chain; a token whose anchor was retracted re-anchors monotonically
+  DOWN to the fork ancestor, never to a phantom height above it.
 * ``epoch``        — the shard ring lands at exactly the old or the
   new epoch (never a torn intermediate) once recovery has run.
 * ``roots``        — final state roots and header hashes are
@@ -45,6 +46,7 @@ __all__ = [
     "InvariantReport",
     "check_ryw",
     "check_retraction",
+    "check_token_floor",
     "check_epoch",
     "check_roots_bit_exact",
     "check_admission_p99",
@@ -140,6 +142,40 @@ def check_retraction(primary_bc, replicas: Iterable,
     return InvariantResult(
         "retraction", not problems, "; ".join(problems[:4]),
     )
+
+
+def check_token_floor(router, retracted: Sequence[Tuple[int, bytes]],
+                      ancestor: Optional[int]) -> InvariantResult:
+    """Tokens anchor honestly after the fork battle: a freshly minted
+    primary token must sit ON the canonical chain, and a token bearing
+    a retracted (number, hash) must floor at or below the fork
+    ancestor — the strongest honest promise left once its block is
+    gone. Asserting via the router's own ``_token_floor`` checks the
+    exact code path every routed read takes."""
+    from khipu_tpu_torch.serving.router import ReadToken
+
+    bc = router.primary.service.blockchain
+    tok = ReadToken.decode(router._mint(None))
+    if tok is None:
+        return InvariantResult("token_floor", False, "mint undecodable")
+    header = bc.get_header_by_number(tok.number)
+    if header is None or (tok.block_hash
+                          and header.hash != tok.block_hash):
+        return InvariantResult(
+            "token_floor", False,
+            f"minted token anchors off-chain at {tok.number}",
+        )
+    for number, old_hash in retracted:
+        stale = ReadToken(router.chain_id, number, old_hash)
+        floor = router._token_floor(stale)
+        limit = ancestor if ancestor is not None else bc.best_block_number
+        if floor is None or floor > min(number, limit):
+            return InvariantResult(
+                "token_floor", False,
+                f"retracted token @{number} floored at {floor}, "
+                f"ancestor {ancestor}",
+            )
+    return InvariantResult("token_floor", True)
 
 
 def check_epoch(rebalancer, old_epoch: int,

@@ -4,10 +4,11 @@ The port's copy of ``khipu_tpu.config``, every default the same, cut to
 the fields the port reads: the chain's fork schedule, the replay's
 sync knobs (serial, optimistic and scheduled execution, the execute
 stage's device validation, the windowed commit pipeline, the commit
-journal and the adaptive controller), the reorg depth limit
-(``DbConfig.unconfirmed_depth``) and the observability plane
-(``ObservabilityConfig``). A section or field comes back with the
-module that reads it.
+journal and the adaptive controller), the storage engine
+(``DbConfig``: engine, directory, cache size and the reorg depth limit,
+read by ``ServiceBoard``), the observability plane
+(``ObservabilityConfig``) and the serving plane (``ServingConfig``). A
+section or field comes back with the module that reads it.
 
 Parity: config/KhipuConfig.scala:20-120 (nested Network/Sync/Db accessor
 objects over HOCON) and BlockchainConfig :185 (fork block numbers,
@@ -94,11 +95,14 @@ class BlockchainConfig:
 
 @dataclass(frozen=True)
 class DbConfig:
-    """Storage settings (DbConfig.scala:5-19), cut to what the port
-    reads: the unconfirmed ring's depth, beyond which sync/reorg.py
-    refuses a chain switch. The engine, directory and cache size are
-    ``Storages``' arguments."""
+    """Engine selection (DbConfig.scala:5-19): the values here are the
+    engines Storages dispatches on; ``ServiceBoard`` opens its stores
+    from them. ``unconfirmed_depth`` bounds the unconfirmed ring,
+    beyond which sync/reorg.py refuses a chain switch."""
 
+    engine: str = "memory"  # memory | native | sqlite | kesque
+    data_dir: Optional[str] = None
+    cache_size: int = 1 << 20  # node FIFO cache entries (cache-size)
     unconfirmed_depth: int = 20  # block-resolving-depth reorg ring
 
 
@@ -243,6 +247,60 @@ class ObservabilityConfig:
 
 
 @dataclass(frozen=True)
+class ServingConfig:
+    """Serving plane (serving/ package): SLO-aware admission control +
+    read-your-writes view between the JSON-RPC server and the
+    sync/storage stack.
+
+    The plane is opt-in (``ServiceBoard.start_serving``); a bare
+    ``JsonRpcServer`` keeps the zero-overhead direct-dispatch path.
+    Per-class concurrency limits adapt by AIMD around the latency
+    targets; pressure signals (window-pipeline occupancy, commit-journal
+    depth, txpool fill, replica lag) shed work class-by-class before
+    queues melt (Welsh's SEDA staged admission; Dean & Barroso's
+    p99-first SLO)."""
+
+    # JSON-RPC surface hardening (jsonrpc/server.py)
+    max_batch: int = 100  # requests per batch array
+    max_body_bytes: int = 2 << 20  # HTTP request body cap
+    # installed filters not polled within this TTL are evicted
+    # (jsonrpc/filters.py; geth's 5-minute deadline)
+    filter_ttl: float = 300.0
+    # bounded admission queue: a request waits at most this long for a
+    # concurrency slot, and at most ``max_queue`` requests wait per
+    # class — beyond either bound it is shed with -32005
+    queue_timeout: float = 0.25
+    max_queue: int = 64
+    # AIMD concurrency limiter (admission.py): additive increase per
+    # under-target completion, multiplicative decrease (x beta) per
+    # over-target completion, at most once per ``decrease_cooldown``
+    aimd_beta: float = 0.7
+    decrease_cooldown: float = 0.1
+    # pressure level in [0,1] at which each cost class starts shedding
+    # (writes go first, cheap reads last); >1 disables pressure sheds
+    shed_write_at: float = 0.85
+    shed_execute_at: float = 0.90
+    shed_read_at: float = 0.95
+    # SLO objective: fraction of requests that must be admitted and
+    # answered without an internal error (error-budget readout)
+    objective: float = 0.999
+    # replica fleet (serving/replica.py + serving/fleet.py): a follower
+    # past this many committed blocks behind the primary saturates the
+    # replica_lag pressure signal, so its read class sheds instead of
+    # serving stale state
+    max_replica_lag_blocks: int = 16
+    # consistent-read wait-or-redirect budget: a token-bearing read
+    # waits at most this long for the picked replica's tail to reach
+    # the token height before redirecting to the primary
+    ryw_wait_s: float = 0.05
+    # follower tail pacing: idle poll interval and the per-pass block
+    # batch bound (a far-behind replica catches up in bounded slices
+    # so lag stays an honest signal)
+    replica_poll_interval: float = 0.02
+    replica_batch_blocks: int = 64
+
+
+@dataclass(frozen=True)
 class KhipuConfig:
     blockchain: BlockchainConfig = field(default_factory=BlockchainConfig)
     db: DbConfig = field(default_factory=DbConfig)
@@ -250,6 +308,7 @@ class KhipuConfig:
     observability: ObservabilityConfig = field(
         default_factory=ObservabilityConfig
     )
+    serving: ServingConfig = field(default_factory=ServingConfig)
 
 
 def fixture_config(

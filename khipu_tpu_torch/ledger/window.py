@@ -126,7 +126,9 @@ class WindowCommitter:
     controller's host mode, the host level loop hashes with ``hasher``
     (``host_hasher`` in host mode). ``mirror``: the device mirror the
     collect stage admits live nodes into (persist then spills them to
-    the host stores)."""
+    the host stores). ``on_block_committed``: the serving read view's
+    publish hook (``ReadView.publish_block``), called at the end of
+    each ``commit_block``."""
 
     def __init__(self, storages, parent_root: bytes,
                  hasher: Hasher = host_hasher,
@@ -135,7 +137,8 @@ class WindowCommitter:
                  fused: bool = False,
                  mirror=None,
                  adaptive=None,
-                 device=None):
+                 device=None,
+                 on_block_committed=None):
         self.storages = storages
         self.hasher = hasher
         self.fused = fused
@@ -154,6 +157,13 @@ class WindowCommitter:
         self.mirror = mirror
         self.account_start_nonce = account_start_nonce
         self.get_block_hash = get_block_hash or (lambda n: None)
+        # serving hook (serving/readview.py): called per commit_block
+        # with (header, {addr: Account | None}, txs) — the account diff
+        # folded into the session, BEFORE any of it is durable. A host
+        # dict: no device read, no sync. It runs on the driver thread
+        # inside the window critical path, so it must be cheap and
+        # must not raise
+        self.on_block_committed = on_block_committed
 
         # ONE placeholder namespace for every trie in the window
         self._logs: Dict[bytes, list] = {}
@@ -220,12 +230,15 @@ class WindowCommitter:
 
     # ------------------------------------------------------------ commit
 
-    def commit_block(self, world: BlockWorldState,
-                     header: BlockHeader) -> None:
+    def commit_block(self, world: BlockWorldState, header: BlockHeader,
+                     txs: Optional[list] = None) -> None:
         """Fold one executed block's world into the window session (the
         deferred analog of world.flush): accounts put, or removed where
         the block deleted them (EIP-161), storage tries folded by
-        ``storage_session``."""
+        ``storage_session``. ``txs`` (the block's tx hashes) rides
+        through to ``on_block_committed`` so the serving overlay can
+        stamp per-tx visibility journeys — ``None`` when the journey
+        plane is off (the zero-cost default)."""
         final = world._materialized_accounts(hasher=None, window=self)
         trie = self.account_trie
         for addr in sorted(final):
@@ -243,6 +256,8 @@ class WindowCommitter:
                     self._window_codes.append(h)
                 self._evmcode_source.staged[h] = code
         self._pending_blocks.append((header, trie.force_hashed_root()))
+        if self.on_block_committed is not None:
+            self.on_block_committed(header, final, txs)
 
     def storage_session(self, root_ref) -> DeferredMPT:
         """A storage-trie session sharing the window namespace; root_ref

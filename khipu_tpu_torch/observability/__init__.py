@@ -15,10 +15,12 @@ The port's copy of ``khipu_tpu.observability``, its one-process half:
   measured floors;
 * export.py — report payloads and Chrome ``trace_event`` JSON for
   perfetto;
-* journey.py — the per-transaction lineage plane.
+* journey.py — the per-transaction lineage plane;
+* telemetry.py — the metrics wire codec a read replica's scrape
+  surface answers in.
 
-The cluster telemetry federation (``telemetry.py``) and export's
-cluster half need the bridge and come with it.
+The cluster telemetry federation (the rest of ``telemetry.py``) and
+export's cluster half need the bridge and come with it (ROADMAP A11).
 """
 
 from khipu_tpu_torch.observability.trace import (  # noqa: F401

@@ -21,7 +21,11 @@ windowed import catches only the cases it has a per-block answer for,
 and an error of the device path escapes ``sync_once`` and ``run`` —
 also one raised by a pushed block's import on a peer's reader thread,
 which is kept and raised by the next ``sync_once`` — so startup
-recovery (``ReplayDriver.recover``) settles a torn window.
+recovery (``ReplayDriver.recover``) settles a torn window. With
+``read_view=`` (the serving plane's ReadView) the windowed import
+publishes into it, and every exception that leaves the import
+invalidates it above best (the replay driver's abort path), so an RPC
+reader never sees a window that did not become durable.
 """
 
 from __future__ import annotations
@@ -116,10 +120,6 @@ class RegularSyncService:
             raise NotImplementedError(
                 "the sharded node-cache cluster is not ported (ROADMAP A11)"
             )
-        if read_view is not None:
-            raise NotImplementedError(
-                "the replica read view is not ported (ROADMAP A10)"
-            )
         self.blockchain = blockchain
         self.config = config
         self.manager = manager
@@ -129,6 +129,7 @@ class RegularSyncService:
         # device=None means the card: every import commits there
         self._driver = ReplayDriver(
             blockchain, config, device_commit=True, device=device,
+            read_view=read_view,
         )
         self.device = self._driver.device
         # journaled atomic chain switch (sync/reorg.py): TD-winning
@@ -136,7 +137,7 @@ class RegularSyncService:
         # unjournaled block-at-a-time rewind
         self.reorg = ReorgManager(
             blockchain, config, driver=self._driver, txpool=txpool,
-            log=log,
+            read_view=read_view, log=log,
         )
         # serializes chain mutation between the pull loop and the
         # NewBlock push handler (which runs on peer reader threads)

@@ -11,11 +11,13 @@ block-at-a-time rewind.
 The switch runs five phases (chaos seams in parentheses; see
 docs/recovery.md for the crash-point table):
 
-1. FENCE — settle any in-flight window intents a dead collector left
-   behind (journal recovery pass, which also detaches the volatile
-   device mirror), and drop unpublished placeholder aliases from the
-   mirror. After the fence, nothing above the ancestor is half-owned
-   by a background stage.
+1. FENCE — invalidate the serving overlay above the fork point
+   (``ReadView.invalidate_above``), settle any in-flight window
+   intents a dead collector left behind (journal recovery pass, which
+   also detaches the volatile device mirror), and drop unpublished
+   placeholder aliases from the mirror. After the fence, nothing
+   above the ancestor is visible to readers or half-owned by a
+   background stage.
 2. INTENT (``reorg.intent``) — stage the adopted branch's full block
    RLP in the window-commit journal and fsync a reorg-intent record
    (sync/journal.py). From here a kill anywhere resolves to exactly
@@ -38,43 +40,24 @@ The port's copy of ``khipu_tpu.sync.reorg``. A long branch adopts
 through the windowed pipeline (one K5 launch a window on the card), a
 short one block by block through the driver's commit (K1r on the card
 with ``device_commit``). The transaction passport stamps
-``reorg.retract`` and ``reorg.reinclude``. Not carried yet: the serving
-read view's fence (ROADMAP A10); ``LogHit`` is a copy of the filter
-record the JSON-RPC layer will read (A10).
+``reorg.retract`` and ``reorg.reinclude``. The retracted logs are the
+filters' ``LogHit`` records (jsonrpc/filters.py), delivered to
+``FilterManager.note_reorg`` at finalize.
 """
 
 from __future__ import annotations
 
 import threading
-from dataclasses import dataclass
 from typing import Callable, List, Optional
 
 from khipu_tpu_torch.chaos import fault_point
 from khipu_tpu_torch.config import KhipuConfig
 from khipu_tpu_torch.domain.block import Block
 from khipu_tpu_torch.domain.blockchain import Blockchain
+from khipu_tpu_torch.jsonrpc.filters import LogHit
 from khipu_tpu_torch.observability.journey import JOURNEY
 from khipu_tpu_torch.observability.registry import REGISTRY
 from khipu_tpu_torch.observability.trace import span
-
-
-@dataclass
-class LogHit:
-    """One log of a block, as a filter delivers it (the JSON-RPC
-    layer's record, jsonrpc/filters.py in the JAX package)."""
-
-    address: bytes
-    topics: tuple
-    data: bytes
-    block_number: int
-    block_hash: bytes
-    tx_hash: bytes
-    tx_index: int
-    log_index: int
-    # True on entries retracting a previously-delivered log whose
-    # block a reorg orphaned (eth_getFilterChanges parity: clients
-    # un-apply, then receive the adopted branch's logs fresh)
-    removed: bool = False
 
 
 class ReorgTooDeep(RuntimeError):
@@ -95,6 +78,7 @@ class ReorgManager:
         config: KhipuConfig,
         driver=None,
         txpool=None,
+        read_view=None,
         log: Optional[Callable[[str], None]] = None,
         device=None,
     ):
@@ -107,6 +91,7 @@ class ReorgManager:
                                   device=device)
         self.driver = driver
         self.txpool = txpool
+        self.read_view = read_view
         self.log = log or (lambda s: None)
         # counters are read by scrape/watchdog threads while the
         # switch mutates them on the import thread
@@ -236,8 +221,10 @@ class ReorgManager:
     # -------------------------------------------------------------- phases
 
     def _fence(self, ancestor_number: int) -> None:
-        """Nothing above the ancestor stays half-owned by a background
-        stage."""
+        """Nothing above the ancestor stays visible to readers or
+        half-owned by a background stage."""
+        if self.read_view is not None:
+            self.read_view.invalidate_above(ancestor_number)
         s = self.blockchain.storages
         journal = s.window_journal
         journal.prune()

@@ -30,7 +30,17 @@ closures, so ``window.pack`` / ``collect`` / ``persist`` / ``save`` are
 its children across threads; the movement ledger (``LEDGER``) tags each
 crossing with its window and phase; the transaction passport
 (``JOURNEY``) stamps ``ingress``, ``seal``, ``journal.intent`` and
-``durable``. The serving read view is not ported yet (ROADMAP A10).
+``durable``.
+
+The serving plane's read view (``ReplayDriver(read_view=)``,
+serving/readview.py) rides it too: each ``commit_block`` publishes the
+block's account diff on the driver thread (a host dict), the save
+stage retires a window once its commit mark is down, and every
+exception that leaves ``replay_windowed`` (a validation or execution
+error, a stage's failure re-raised here, a kernel wrapper's or
+``fused.dispatch``'s error, a ``CollectorDied``) invalidates the overlay
+above best before it propagates: a reader never sees state that no
+durable window holds.
 """
 
 from __future__ import annotations
@@ -497,7 +507,9 @@ class ReplayDriver:
 
     ``tracer``: the ring this driver's spans go to (the process tracer
     by default); ``config.observability`` enables it, the movement
-    ledger and the journey board.
+    ledger and the journey board. ``read_view``: the serving plane's
+    read-your-writes overlay (serving/readview.py) the windowed replay
+    publishes into, retires from and invalidates.
     """
 
     def __init__(
@@ -509,9 +521,16 @@ class ReplayDriver:
         device_commit: bool = False,
         device=None,
         tracer: Optional[Tracer] = None,
+        read_view=None,
     ):
         self.blockchain = blockchain
         self.config = config
+        # serving-plane read view (serving/readview.py): committed
+        # blocks publish their account diffs into it on the driver
+        # thread, durable windows retire them on the save stage, and a
+        # pipeline abort invalidates everything above the committed
+        # best — RPC reads stay monotonic mid-pipeline
+        self.read_view = read_view
         # per-driver recorder: a driver handed its own Tracer records
         # there; the default is the process instance
         self.tracer = tracer if tracer is not None else _default_tracer
@@ -692,6 +711,10 @@ class ReplayDriver:
                 mirror=mirror,
                 adaptive=adaptive,
                 device=dev,
+                on_block_committed=(
+                    self.read_view.publish_block
+                    if self.read_view is not None else None
+                ),
             )
 
         committer = make_committer(parent.state_root)
@@ -895,6 +918,11 @@ class ReplayDriver:
                         for _, result in results:
                             stats.add_exec(result.stats)
                         LEDGER.note_blocks(n_blocks)
+                    # the window is durable (best advanced, commit mark
+                    # down): the committed store now serves same-or-newer
+                    # state, so the read-view overlay lets go of it
+                    if self.read_view is not None:
+                        self.read_view.retire_through(hi)
                     ph["save_bg"] += time.perf_counter() - t0
 
             return (seal_fn, collect_fn, persist_fn, save_fn)
@@ -1004,7 +1032,11 @@ class ReplayDriver:
                         )
                     ph["execute"] += time.perf_counter() - t0
                     t0 = time.perf_counter()
-                    committer.commit_block(result.world, header)
+                    committer.commit_block(
+                        result.world, header,
+                        txs=([stx.hash for stx in block.body.transactions]
+                             if JOURNEY.enabled else None),
+                    )
                     window_headers[header.number] = header.hash
                     window_headers_full[header.number] = header
                     window_blocks[header.number] = block
@@ -1048,6 +1080,12 @@ class ReplayDriver:
             if prefetcher is not None:
                 prefetcher.close()
             collector.kill()
+            # un-durable overlay state dies with the windows that
+            # produced it: reads fall back to the committed store
+            if self.read_view is not None:
+                self.read_view.invalidate_above(
+                    self.blockchain.best_block_number
+                )
             raise
         collector.close()
         if prefetcher is not None:
@@ -1077,8 +1115,9 @@ class ReplayDriver:
         if parent is None:
             raise ValueError(f"no parent for block {header.number}")
         # passport stamps for the per-block import path (live sync, the
-        # reorg's adoption); a replica's tail re-execution (the serving
-        # plane, not ported yet) stamps only its own page
+        # reorg's adoption); a replica's tail re-execution runs under
+        # use_node("replica:...") and stamps only its own visibility
+        # page (serving/replica.py)
         journeys = JOURNEY.enabled and current_node() == "primary"
         if journeys:
             for stx in block.body.transactions:

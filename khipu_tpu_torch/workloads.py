@@ -18,8 +18,9 @@ drive the same data:
   (a share of each block's transfers paying a few hot recipients),
   ``erc20_chain`` (a deploy block, then token ``transfer(to, amount)``
   calls), ``erc20_fork_chain`` (a heavier branch of it, for chain
-  switches) and ``mixed_contract_chain`` (counter calls beside
-  transfers). ``replay_config`` and ``prebyzantium_config`` give their
+  switches), ``erc20_log_blocks`` (blocks on its head calling a token
+  that emits the Transfer event) and ``mixed_contract_chain`` (counter
+  calls beside transfers). ``replay_config`` and ``prebyzantium_config`` give their
   configurations.
 
 Addresses and slots are hashed in one batch on ``device`` (K1f on the
@@ -257,6 +258,27 @@ ERC20_INIT = bytes([
     0x60, 0x00,                # PUSH1 0
     0xF3,                      # RETURN
 ]) + ERC20_RUNTIME
+
+# keccak256("Transfer(address,address,uint256)"), the ERC-20 event topic
+TRANSFER_TOPIC = bytes.fromhex(
+    "ddf252ad1be2c89b69c2b068fc378daa952ba7f163c4a11628f55a4df523b3ef")
+# ERC20_RUNTIME with the Transfer event a mainnet token emits: after the
+# credit, LOG3(data = amount; topics TRANSFER_TOPIC, caller, recipient)
+ERC20_LOG_RUNTIME = ERC20_RUNTIME[:-1] + bytes([
+    0x60, 0x20, 0x35,        # PUSH1 32 CALLDATALOAD   amount
+    0x60, 0x00, 0x52,        # PUSH1 0  MSTORE   mem[0:32] = amount
+    0x60, 0x00, 0x35,        # PUSH1 0 CALLDATALOAD    topic 2: recipient
+    0x33,                    # CALLER                  topic 1: sender
+    0x7F,                    # PUSH32                  topic 0
+]) + TRANSFER_TOPIC + bytes([
+    0x60, 0x20, 0x60, 0x00,  # PUSH1 32 PUSH1 0  (size, offset)
+    0xA3,                    # LOG3
+    0x00,                    # STOP
+])
+ERC20_LOG_INIT = bytes([
+    0x60, len(ERC20_LOG_RUNTIME), 0x60, 0x0C, 0x60, 0x00, 0x39,
+    0x60, len(ERC20_LOG_RUNTIME), 0x60, 0x00, 0xF3,
+]) + ERC20_LOG_RUNTIME
 
 COINBASE = b"\xaa" * 20
 # room for 200 token calls a block at a 100,000 gas limit each
@@ -502,6 +524,44 @@ def _erc20_blocks(cfg, n_blocks, txs_per_block, holders, extra_alloc,
 @functools.lru_cache(maxsize=4)
 def _erc20_senders(txs_per_block: int):
     return replay_keys(txs_per_block, seed_base=501)
+
+
+def erc20_log_blocks(builder, transfer_blocks: int, n_blocks: int,
+                     txs_per_block: int, holders: int):
+    """``n_blocks`` blocks on top of ``erc20_chain``'s head after
+    ``transfer_blocks`` transfer blocks, built by ``builder`` (whose head
+    must be that block): the first opens with a deploy of an
+    ``ERC20_LOG_RUNTIME`` token by sender 0, then every sender's next
+    ``transfer(to, amount)`` on that token, each emitting one Transfer
+    log. Returns ``(token address, blocks)``."""
+    from khipu_tpu_torch.domain.transaction import (
+        Transaction,
+        contract_address,
+        sign_transaction,
+    )
+
+    keys, addrs = _erc20_senders(txs_per_block)
+    # sender 0 deployed the first token: one nonce ahead of the others
+    nonces = [transfer_blocks + 1] + [transfer_blocks] * (txs_per_block - 1)
+    token = contract_address(addrs[0], nonces[0])
+    blocks = []
+    for n in range(n_blocks):
+        txs = []
+        for j in range(txs_per_block):
+            if n == 0 and j == 0:
+                tx = Transaction(nonces[0], 10**9, 500_000, None, 0,
+                                 payload=ERC20_LOG_INIT)
+            else:
+                rcpt = (0xE30E3000 + (j + n * 5) % holders).to_bytes(
+                    20, "big")
+                amount = 2_000 + 17 * j + n
+                tx = Transaction(nonces[j], 10**9, 100_000, token, 0,
+                                 payload=rcpt.rjust(32, b"\x00")
+                                 + amount.to_bytes(32, "big"))
+            txs.append(sign_transaction(tx, keys[j], chain_id=1))
+            nonces[j] += 1
+        blocks.append(builder.add_block(txs, coinbase=COINBASE))
+    return token, blocks
 
 
 def erc20_transfers(n: int, txs_per_block: int, holders: int,

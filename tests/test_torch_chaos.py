@@ -437,7 +437,8 @@ def test_seam_audit():
         "storage.block.get", "storage.block.put", "reorg.intent",
         "reorg.rollback", "reorg.adopt", "reorg.finalize",
         "fused.dispatch", "fused.collect", "kesque.append", "kesque.roll",
-        "kesque.index", "kesque.compact", "kesque.ingest"}
+        "kesque.index", "kesque.compact", "kesque.ingest", "replica.tail",
+        "fleet.route"}
     import inspect
 
     tests = "".join(

@@ -1,8 +1,9 @@
 """The port stands alone: importing every khipu_tpu_torch module (the
-consensus, chaos, reorg, pool and miner modules among them) loads
-neither JAX nor the khipu_tpu reference package, and an entry point that
-is asked for the card where there is none raises instead of running on
-the CPU."""
+consensus, chaos, reorg, pool and miner modules among them, and the
+serving plane and node front: jsonrpc/, serving/, service_board,
+__main__) loads neither JAX, nor the khipu_tpu reference package, nor
+gRPC, and an entry point that is asked for the card where there is none
+raises instead of running on the CPU."""
 
 import os
 import subprocess
@@ -51,6 +52,7 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
+             or m == "grpc" or m.startswith("grpc.")
              or m == "khipu_tpu" or m.startswith("khipu_tpu."))
 want = {"khipu_tpu_torch.consensus", "khipu_tpu_torch.consensus.ethash",
         "khipu_tpu_torch.chaos", "khipu_tpu_torch.chaos.plan",
@@ -62,7 +64,18 @@ want = {"khipu_tpu_torch.consensus", "khipu_tpu_torch.consensus.ethash",
         "khipu_tpu_torch.network.rlpx", "khipu_tpu_torch.network.discovery",
         "khipu_tpu_torch.sync.regular_sync",
         "khipu_tpu_torch.sync.fast_sync_service", "khipu_tpu_torch.keystore",
-        "khipu_tpu_torch.native.aes", "khipu_tpu_torch.base.aes"}
+        "khipu_tpu_torch.native.aes", "khipu_tpu_torch.base.aes",
+        "khipu_tpu_torch.ledger.simulate", "khipu_tpu_torch.jsonrpc",
+        "khipu_tpu_torch.jsonrpc.filters",
+        "khipu_tpu_torch.jsonrpc.eth_service",
+        "khipu_tpu_torch.jsonrpc.personal_service",
+        "khipu_tpu_torch.jsonrpc.server", "khipu_tpu_torch.serving",
+        "khipu_tpu_torch.serving.readview", "khipu_tpu_torch.serving.slo",
+        "khipu_tpu_torch.serving.admission",
+        "khipu_tpu_torch.serving.loadgen", "khipu_tpu_torch.serving.router",
+        "khipu_tpu_torch.serving.replica", "khipu_tpu_torch.serving.fleet",
+        "khipu_tpu_torch.observability.telemetry",
+        "khipu_tpu_torch.service_board", "khipu_tpu_torch.__main__"}
 print(len(names), sorted(want - set(names)) + bad)
 """
 
@@ -111,6 +124,19 @@ def _signed_tx():
     return SignedTransaction.decode(stx.encode())  # no cached sender
 
 
+def _service_board():
+    from khipu_tpu_torch.service_board import ServiceBoard
+
+    return ServiceBoard(workloads.replay_config())
+
+
+def _replica():
+    from khipu_tpu_torch.serving.replica import PrimaryFeed, ReplicaDriver
+
+    return ReplicaDriver("r", PrimaryFeed(_chain()), workloads.replay_config(),
+                         GenesisSpec(alloc={b"a" * 20: 1}))
+
+
 def _session():
     d = deferred.DeferredMPT(load_reference_nodes({}))
     for i in range(4):
@@ -155,6 +181,8 @@ def _session():
     lambda: ReorgManager(_chain(), workloads.replay_config()),
     lambda: RegularSyncService(_chain(), workloads.replay_config(), None),
     lambda: FastSyncService(_chain(), workloads.replay_config(), None),
+    lambda: _service_board(),
+    lambda: _replica(),
 ], ids=["batch", "batch-cuda", "fixed", "device_hasher", "bulk_fused",
         "bulk_levels", "finalize_fused", "finalize_levels", "commit",
         "batch_commit", "fused_submit", "device_fixed", "device_fixed_words",
@@ -162,7 +190,7 @@ def _session():
         "genesis_on_device", "sender_batch_hash", "replay_windowed",
         "window_committer_fused", "adaptive_controller", "adaptive_probe",
         "exec_validate", "exec_device_allowed", "reorg_manager",
-        "regular_sync", "fast_sync_service"])
+        "regular_sync", "fast_sync_service", "service_board", "replica"])
 def test_entry_points_raise_without_card(no_card, call):
     with pytest.raises(RuntimeError, match="is_available"):
         call()
@@ -302,6 +330,20 @@ def test_native_sources_include_nothing_of_the_reference():
                 assert "khipu" not in inc, (src, inc)
         assert "khipu_tpu/" not in src.read_text().replace(
             "khipu_tpu_torch/", ""), src
+
+
+def test_port_never_imports_grpc():
+    """The machine with the card has no gRPC package: no module of the
+    port imports it (the bridge waits for ROADMAP A11)."""
+    import re
+
+    root = os.path.join(REPO, "khipu_tpu_torch")
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                text = open(os.path.join(dirpath, f)).read()
+                assert not re.search(
+                    r"^\s*(from|import)\s+grpc\b", text, re.M), f
 
 
 def test_port_never_imports_cryptography():

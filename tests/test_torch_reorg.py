@@ -10,8 +10,9 @@ the JAX package on its host path; best blocks, tip hashes, state roots,
 recovery reports and pools must be equal.
 
 The TD rule and the regular-sync cases are in
-``test_torch_live_sync.py``; the filter retractions and the serving
-invariants wait for the JSON-RPC and serving planes (ROADMAP A10).
+``test_torch_live_sync.py``; the filter retractions, the read view's
+fence and the replica's mirrored switch in ``test_torch_serving.py``
+and ``test_torch_fleet.py``.
 """
 
 import dataclasses
