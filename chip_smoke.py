@@ -70,7 +70,7 @@ entry points a user calls:
      (``load_genesis(on_device=True)``, K1r once a trie level), then
      mainnet block 1 through ``ReplayDriver(device_commit=True)``: the
      root must be the sealed header's, the miner must hold 5 ETH
- 12. replay_transfers: 64 blocks of one value transfer each, built by
+ 12. replay_transfers: 32 blocks of one value transfer each, built by
      ``ChainBuilder`` on the host, round-tripped through wire RLP and
      replayed on the card
  13. replay_erc20: a deploy block, then 16 blocks of 200 ERC-20
@@ -96,7 +96,7 @@ and K1r's launches a block, the trie commits' and the senders' apart.
  14. replay_transfers_w16: 12's chain through the windowed, pipelined
      replay at ``commit_window_blocks=16``
  15. replay_erc20_w8: 13's chain at ``commit_window_blocks=8``
- 16. replay_erc20_100k_w8: a deploy and 32 blocks of 200 ERC-20
+ 16. replay_erc20_100k_w8: a deploy and 16 blocks of 200 ERC-20
      transfers over a genesis with 100,000 more accounts, window 8
 
 14-16 run ``ReplayDriver(device_commit=True)`` with every other sync
@@ -254,13 +254,37 @@ Then the node on the network and behind its RPC front:
      mirror verify 0, the replica's head and state equal the primary's,
      every retracted log returned with ``removed: true``
 
+Then the bridge and the sharded node-cache cluster:
+
+ 30. bridge_cluster_100k_w8 (``bridge_cluster_phase``): a primary
+     ``ServiceBoard`` (memory, window 8) at 16's genesis runs
+     ``start_bridge()`` (its commits on the card) and a ``BridgeClient`` sends
+     16's chain in ``ExecuteBlocks`` batches of 8: every answered root
+     the header's, K5 = the windows (one a batch), K1r = the sender
+     batches, the primary's reachable nodes equal 16's CPU windowed
+     import's. Two more boards execute 13's first 8 blocks over their bridges at
+     once, one batch each (both sets of roots, K5 2). Three kesque
+     shard boards take the primary's state through
+     ``ShardedNodeClient.replicate`` (replication 2, 64 vnodes); a reader
+     board's ``start_cluster`` fetches every node in batches of 2,048
+     (byte-equal, none missing) and walks 500 accounts through
+     ``RemoteReadThroughNodeStorage``; midway one shard stops and the
+     health prober drops it within ``down_after`` probes. ``join_shard``
+     of a fourth kesque shard (the segment ship), then ``retire_shard``
+     of an original: the epoch one up each time, the moved copies 1/N
+     of the cluster's, every node bit-exact after, the joiner serving
+     its share to a direct call. A ``ClusterTelemetry`` scrape (one
+     family set a live shard, the stopped shard's health under the
+     threshold) and a merged Chrome trace under ``chiprun_out/`` (every
+     linked ``bridge.serve.*`` inside its ``bridge.call``)
+
 After phases 9 and 10, K3 and K4 are held against their plain versions
 on every class of that phase's mirror, whole (the padded generic
 classes the paths gave them), with the negative controls in each class.
 
 Launch counts are zeroed just before each driven path (4-6, 8, 9, 10,
 each genesis load and replay of 11-19 and 24, and each killed run,
-resume, mirror verify and switch of 21-23 and 25, and 28-29) and read
+resume, mirror verify and switch of 21-23 and 25, and 28-30) and read
 just after it; 26 and 27 run on the host and launch nothing. Every comparison is exact (bytes). Each phase
 prints one JSON line; the first line is the card's name and power limit from nvidia-smi, the line
 before the last lists the kernels, and the last line is the result. Any
@@ -1403,7 +1427,10 @@ def windowed_phases(args, torch, dev, launches, chains,
           # the chain live_sync_erc20_100k and serve_erc20_100k_w8 serve,
           # and its unloaded windowed import's rate
           "chain_100k": (builder_100k, spec_100k, blocks_100k),
-          "blocks_per_s_100k": lines["replay_erc20_100k_w8"]["blocks_per_s"]}
+          "blocks_per_s_100k": lines["replay_erc20_100k_w8"]["blocks_per_s"],
+          # its CPU windowed import's reachable nodes, which
+          # bridge_cluster_100k_w8's primary must hold
+          "nodes_100k": ref_nodes["replay_erc20_100k_w8"]}
     del ref, erc20_w8
 
     # parallel and scheduled execution (the default parallel_tx and
@@ -3444,6 +3471,423 @@ def serve_phase(torch, dev, launches, chain100k, unloaded_bps) -> list:
         board.shutdown()
 
 
+# bridge_cluster_100k_w8: the bridge and the sharded node-cache cluster
+BRIDGE_WINDOW = 8
+BRIDGE_BATCH = 8  # blocks an ExecuteBlocks call: one window each
+CLUSTER_SHARDS = 3
+CLUSTER_REPLICATION = 2
+CLUSTER_VNODES = 64
+CLUSTER_READ_BATCH = 2048  # keys a cluster.fetch
+CLUSTER_SAMPLE_ACCOUNTS = 500  # bulk accounts walked through the trie
+CLUSTER_DEADLINE_S = 120.0  # a bridge call, a thread join, a rebalance
+CLUSTER_MOVED_SLACK = 0.1  # |moved copies / all copies - 1/N| at most
+
+
+def bounded(fn, what: str, timeout: float = CLUSTER_DEADLINE_S):
+    """``fn()`` on a worker thread joined under a hard deadline: a
+    wedged call fails the phase instead of hanging the script."""
+    box = {}
+
+    def work():
+        try:
+            box["out"] = fn()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            box["err"] = e
+
+    t = threading.Thread(target=work, daemon=True, name=what)
+    t.start()
+    t.join(timeout)
+    check(not t.is_alive(), f"{what} did not end within {timeout} s")
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
+
+
+def bridge_cluster_phase(torch, dev, launches, chain100k, nodes_100k,
+                         small_chain, unloaded_bps) -> list:
+    """bridge_cluster_100k_w8: the bridge and the sharded node-cache
+    cluster on the card. (1) A primary ``ServiceBoard`` (memory, window
+    8) at replay_erc20_100k_w8's genesis runs ``start_bridge(port=0)``
+    (its commits on the card); a ``BridgeClient`` sends the chain in
+    ``ExecuteBlocks`` batches of 8 (one window each: K5 one a batch, K1r
+    one a sender batch). (2) Two more boards execute replay_erc20's
+    first 8 blocks over their bridges at once. (3) Three kesque shard boards
+    receive the primary's reachable state through
+    ``ShardedNodeClient.replicate`` (replication 2, 64 vnodes). (4) A
+    reader board's ``start_cluster`` fetches every node in batches of
+    2,048 and walks 500 accounts through
+    ``RemoteReadThroughNodeStorage``; midway one shard stops and the
+    health prober drops it. (5) ``join_shard`` of a fourth kesque shard
+    (the segment ship), then ``retire_shard`` of an original. (6) A
+    ``ClusterTelemetry`` scrape and a merged Chrome trace. Returns the
+    phase's lines."""
+    from khipu_tpu_torch import workloads
+    from khipu_tpu_torch.bridge import BridgeClient
+    from khipu_tpu_torch.config import ClusterConfig, DbConfig, TelemetryConfig
+    from khipu_tpu_torch.domain.account import address_key
+    from khipu_tpu_torch.domain.block import Block
+    from khipu_tpu_torch.domain.blockchain import GenesisSpec
+    from khipu_tpu_torch.ledger.window import WINDOW_GAUGES
+    from khipu_tpu_torch.observability import export
+    from khipu_tpu_torch.observability.trace import Tracer, use_tracer
+    from khipu_tpu_torch.service_board import ServiceBoard
+    from khipu_tpu_torch.sync import prefetch
+    from khipu_tpu_torch.trie.mpt import MerklePatriciaTrie
+
+    name = "bridge_cluster_100k_w8"
+    _, spec, blocks = chain100k
+    cfg = workloads.replay_config(commit_window_blocks=BRIDGE_WINDOW)
+    wire = [Block.decode(b.encode()) for b in blocks]
+    head = wire[-1].header.state_root
+    small = GenesisSpec(alloc={b"\x5a" * 20: 1})
+    tmp = tempfile.mkdtemp(prefix="khipu_cluster_")
+    boards, clients, lines = [], [], []
+
+    def board(config, genesis):
+        b = ServiceBoard(config, genesis=genesis, device=dev)
+        boards.append(b)
+        return b
+
+    def client(endpoint):
+        c = BridgeClient(endpoint, deadline=CLUSTER_DEADLINE_S)
+        clients.append(c)
+        return c
+
+    def kesque_cfg(i):
+        return dataclasses.replace(cfg, db=DbConfig(
+            engine="kesque", data_dir=os.path.join(tmp, f"shard{i}")))
+
+    def sender_batches():
+        return prefetch.PREFETCH_GAUGES["device_batches"]
+
+    try:
+        # 1. the chain in ExecuteBlocks batches over the primary's bridge
+        launches.zero()
+        t0 = time.perf_counter()
+        primary = board(cfg, spec)
+        torch.cuda.synchronize()
+        genesis_s = time.perf_counter() - t0
+        genesis = launches.read(f"{name} genesis", ("k1r",))
+        port = primary.start_bridge(port=0)
+        bridge = client(f"127.0.0.1:{port}")
+        prefetch.flush_sender_cache()
+        before = {"batches": sender_batches(),
+                  "device": WINDOW_GAUGES["device_windows"],
+                  "host": WINDOW_GAUGES["host_windows"]}
+        batches = [wire[i:i + BRIDGE_BATCH]
+                   for i in range(0, len(wire), BRIDGE_BATCH)]
+        launches.zero()
+        t0 = time.perf_counter()
+        answers = []
+        for batch in batches:
+            answers.extend(bridge.execute_blocks(batch))
+        torch.cuda.synchronize()
+        exec_s = time.perf_counter() - t0
+        path = launches.read(name, ("k1r", "k5"))
+        senders = sender_batches() - before["batches"]
+        device_w = WINDOW_GAUGES["device_windows"] - before["device"]
+        host_w = WINDOW_GAUGES["host_windows"] - before["host"]
+        windows = sum(-(-len(b) // BRIDGE_WINDOW) for b in batches)
+        check(answers == [(b.number, b.header.state_root) for b in wire],
+              f"{name}: an ExecuteBlocks root != its header's")
+        check(path["k5"] == windows == device_w and host_w == 0,
+              f"{name}: K5 {path['k5']}, {device_w} device + {host_w} host "
+              f"windows of {windows}")
+        check(path["k1r"] == senders == len(wire),
+              f"{name}: K1r {path['k1r']} for {senders} sender batches "
+              f"({len(wire)} blocks)")
+        check(primary.storages.window_journal.pending() == [],
+              f"{name}: journal intents pending")
+        report, reached = reachable(primary.storages, head)
+        check(report.missing == 0 and report.corrupt == 0
+              and reached == nodes_100k, f"{name}: the primary's reachable "
+              "nodes != the in-process windowed import's")
+        state = {}
+        for part in reached:
+            state.update(part)
+        lines.append({
+            "phase": name, "step": "execute_over_bridge",
+            "blocks": len(wire), "batches": len(batches),
+            "window": BRIDGE_WINDOW, "seconds": exec_s,
+            "blocks_per_s": len(wire) / exec_s,
+            "in_process_blocks_per_s": unloaded_bps,
+            "windows": windows, "device_windows": device_w,
+            "host_windows": host_w, "k1r_sender_batches": senders,
+            "genesis_seconds": genesis_s, "genesis_launches": genesis,
+            "reachable_nodes": len(state), "launches": path,
+            "card": card_line()})
+
+        # 2. two shards' ExecuteBlocks at once, once
+        # one batch of the small chain each (one window)
+        s_spec, s_blocks = small_chain
+        s_wire = [Block.decode(b.encode()) for b in s_blocks[:BRIDGE_BATCH]]
+        pair = [board(cfg, s_spec) for _ in range(2)]
+        pair_clients = [client(f"127.0.0.1:{b.start_bridge(port=0)}")
+                        for b in pair]
+        prefetch.flush_sender_cache()
+        before = sender_batches()
+        launches.zero()
+        t0 = time.perf_counter()
+        outs = [None, None]
+
+        def run(i):
+            outs[i] = pair_clients[i].execute_blocks(s_wire)
+
+        threads = [threading.Thread(target=run, args=(i,), daemon=True)
+                   for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(CLUSTER_DEADLINE_S)
+        check(not any(t.is_alive() for t in threads),
+              f"{name}: a concurrent ExecuteBlocks did not return")
+        torch.cuda.synchronize()
+        pair_s = time.perf_counter() - t0
+        pair_path = launches.read(f"{name} concurrent", ("k1r", "k5"))
+        want = [(b.number, b.header.state_root) for b in s_wire]
+        s_windows = -(-len(s_wire) // BRIDGE_WINDOW)
+        check(outs == [want, want], f"{name}: a concurrent batch's roots")
+        check(pair_path["k5"] == 2 * s_windows, f"{name}: K5 "
+              f"{pair_path['k5']} for two shards of {s_windows} windows")
+        check(pair_path["k1r"] == sender_batches() - before,
+              f"{name}: K1r {pair_path['k1r']} != the sender batches")
+        check(all(b.blockchain.best_block_number == len(s_wire)
+                  for b in pair), f"{name}: a concurrent shard's best")
+        lines.append({"phase": name, "step": "two_shards_at_once",
+                      "blocks_each": len(s_wire), "seconds": pair_s,
+                      "windows_each": s_windows, "launches": pair_path})
+        for b in pair:
+            b.shutdown()
+            boards.remove(b)
+
+        # 3. three kesque shards receive the primary's state
+        shards = [board(kesque_cfg(i), small) for i in range(CLUSTER_SHARDS)]
+        eps = [f"127.0.0.1:{b.start_bridge(port=0)}" for b in shards]
+        ccfg = dataclasses.replace(
+            cfg,
+            cluster=ClusterConfig(
+                endpoints=tuple(eps), replication=CLUSTER_REPLICATION,
+                vnodes=CLUSTER_VNODES, max_retries=1, backoff_base=0.01,
+                rpc_deadline=CLUSTER_DEADLINE_S, probe_interval=3600.0,
+                down_after=2, up_after=1),
+            telemetry=TelemetryConfig(enabled=True, scrape_interval=3600.0,
+                                      watchdog=False))
+        reader = board(ccfg, small)
+        t0 = time.perf_counter()
+        cluster = reader.start_cluster()
+        placed = bounded(lambda: cluster.replicate(state),
+                         f"{name}: replicate")
+        replicate_s = time.perf_counter() - t0
+        check(placed == CLUSTER_REPLICATION * len(state),
+              f"{name}: {placed} placements of {len(state)} nodes")
+        lines.append({"phase": name, "step": "replicate",
+                      "nodes": len(state), "placements": placed,
+                      "seconds": replicate_s,
+                      "nodes_per_s": len(state) / replicate_s,
+                      "replication": CLUSTER_REPLICATION,
+                      "vnodes": CLUSTER_VNODES, "shards": len(eps)})
+
+        # 4. every node read through the cluster; one shard stops midway
+        keys = sorted(state)
+        dead = eps[1]
+        mon = reader._cluster_health
+        got, probes, t0 = {}, 0, time.perf_counter()
+        failovers_before_drop = 0
+        for i in range(0, len(keys), CLUSTER_READ_BATCH):
+            if i >= len(keys) // 2 and dead in cluster.ring.members:
+                shards[1].bridge.stop()
+                # reads go on before the verdict: failovers
+                got.update(cluster.fetch(keys[i:i + CLUSTER_READ_BATCH]))
+                failovers_before_drop = sum(
+                    m.failovers for m in cluster.metrics.values())
+                while dead in cluster.ring.members:
+                    check(probes < ccfg.cluster.down_after,
+                          f"{name}: {dead} still in the ring after "
+                          f"{probes} probes")
+                    mon.probe_once()
+                    probes += 1
+                continue
+            got.update(cluster.fetch(keys[i:i + CLUSTER_READ_BATCH]))
+        read_s = time.perf_counter() - t0
+        check(got == state, f"{name}: {len(state) - len(got)} nodes missing "
+              "or different through the cluster")
+        snap = cluster.metrics_snapshot()
+        check(snap["unreachable"] == 0, f"{name}: unreachable keys")
+        # sampled accounts through the read-through wrappers
+        t0 = time.perf_counter()
+        trie = MerklePatriciaTrie(reader.storages.account_node_storage,
+                                  root_hash=head)
+        ref = MerklePatriciaTrie(primary.storages.account_node_storage,
+                                 root_hash=head)
+        addrs = list(workloads.bulk_alloc(CLUSTER_SAMPLE_ACCOUNTS))
+        for a in addrs:
+            k = address_key(a)
+            check(trie.get(k) == ref.get(k), f"{name}: account {a.hex()} "
+                  "through the cluster != the primary's")
+        walk_s = time.perf_counter() - t0
+        dead_m = snap["shards"][dead]
+        lines.append({
+            "phase": name, "step": "read_through_cluster",
+            "nodes": len(got), "seconds": read_s,
+            "nodes_per_s": len(got) / read_s, "batch": CLUSTER_READ_BATCH,
+            "stopped": dead, "probes_to_drop": probes,
+            "failovers_before_drop": failovers_before_drop,
+            "failovers": sum(s["failovers"] for s in snap["shards"].values()),
+            "dead_failures": dead_m["failures"],
+            "dead_breaker": dead_m["breakerState"],
+            "breakers_open": sum(1 for s in snap["shards"].values()
+                                 if s["breakerState"] != "closed"),
+            "accounts_walked": len(addrs), "walk_seconds": walk_s,
+            "healed": reader.storages.account_node_storage.healed,
+            "members": list(cluster.ring.members)})
+
+        # 5. a fourth kesque shard joins (the segment ship); an original
+        # retires
+        shipped = {"bytes": 0, "pages": 0}
+        stream, pages = cluster.stream_segments, cluster.stream_node_data
+
+        def counted(*a, **kw):
+            raw, nxt, done = stream(*a, **kw)
+            shipped["bytes"] += len(raw)
+            return raw, nxt, done
+
+        def paged(*a, **kw):
+            shipped["pages"] += 1
+            return pages(*a, **kw)
+
+        cluster.stream_segments = counted
+        cluster.stream_node_data = paged
+        e0 = cluster.ring.epoch
+        t_boot = time.perf_counter()
+        joiner_board = board(kesque_cfg(CLUSTER_SHARDS), small)
+        joiner = f"127.0.0.1:{joiner_board.start_bridge(port=0)}"
+        t0 = time.perf_counter()
+        join_keys = bounded(lambda: reader.join_shard(joiner),
+                            f"{name}: join_shard")
+        join_s = time.perf_counter() - t0
+        boot_to_serving = time.perf_counter() - t_boot
+        rb = reader.rebalancer
+        join_frac = rb.last_moved_fraction
+        n_join = len(cluster.ring.members)
+        check(cluster.ring.epoch == e0 + 1 and joiner in cluster.ring.members,
+              f"{name}: the join's epoch {cluster.ring.epoch} (from {e0})")
+        check(rb.segment_chunks > 0 and shipped["bytes"] > 0
+              and shipped["pages"] == 0, f"{name}: the join did not go "
+              "by the segment ship alone")
+        check(abs(join_frac / CLUSTER_REPLICATION - 1 / n_join)
+              <= CLUSTER_MOVED_SLACK, f"{name}: the join moved "
+              f"{join_frac:.3f} of the keyspace at {n_join} members")
+        retiree = eps[0]
+        n_before = len(cluster.ring.members)
+        t0 = time.perf_counter()
+        retire_keys = bounded(lambda: reader.retire_shard(retiree),
+                              f"{name}: retire_shard")
+        retire_s = time.perf_counter() - t0
+        retire_frac = rb.last_moved_fraction
+        check(cluster.ring.epoch == e0 + 2
+              and retiree not in cluster.ring.members,
+              f"{name}: the retire's epoch {cluster.ring.epoch}")
+        check(shipped["pages"] == 0, f"{name}: the retire fell back to "
+              "StreamNodeData pages")
+        check(abs(retire_frac / CLUSTER_REPLICATION - 1 / n_before)
+              <= CLUSTER_MOVED_SLACK, f"{name}: the retire moved "
+              f"{retire_frac:.3f} of the keyspace from {n_before} members")
+        t0 = time.perf_counter()
+        again = {}
+        for i in range(0, len(keys), CLUSTER_READ_BATCH):
+            again.update(cluster.fetch(keys[i:i + CLUSTER_READ_BATCH]))
+        reread_s = time.perf_counter() - t0
+        check(again == state, f"{name}: a key no longer fetches bit-exact "
+              "after the join and the retire")
+        share = [k for k in keys if joiner in cluster.ring.replicas_for(k)]
+        direct = client(joiner)
+        served = {}
+        for i in range(0, len(share), CLUSTER_READ_BATCH):
+            served.update(direct.get_node_data(share[i:i + CLUSTER_READ_BATCH]))
+        check(served == {k: state[k] for k in share},
+              f"{name}: the joiner does not serve its share")
+        lines.append({
+            "phase": name, "step": "join_retire",
+            "join_keys_streamed": join_keys, "join_seconds": join_s,
+            "boot_to_serving_seconds": boot_to_serving,
+            "join_moved_fraction": join_frac, "members_after_join": n_join,
+            "segment_chunks": rb.segment_chunks,
+            "bytes_shipped": shipped["bytes"],
+            "retire_keys_streamed": retire_keys,
+            "retire_seconds": retire_s,
+            "retire_moved_fraction": retire_frac,
+            "epoch": cluster.ring.epoch, "joiner_share": len(share),
+            "reread_seconds": reread_s,
+            "members": list(cluster.ring.members)})
+
+        # 6. the federation's scrape and the merged trace
+        live = list(cluster.ring.members)
+        tel = reader.start_telemetry(endpoints=live + [dead])
+        # the shards serve this process's registry, which gains the
+        # federation's own families at its first scrape: judge the second
+        tel.scrape_once()
+        scraped = tel.scrape_once()
+        fams = tel.merged_families()
+        per_shard = {ep: sorted(n for n, (_, _, samples) in fams.items()
+                                if any(lb.get("shard") == ep
+                                       for lb, _ in samples))
+                     for ep in live + [dead]}
+        check(scraped == len(live) and all(per_shard[ep] for ep in live)
+              and len({tuple(per_shard[ep]) for ep in live}) == 1,
+              f"{name}: not one family set per live shard: " + str(
+                  [sorted(set(per_shard[ep]) ^ set(per_shard[live[0]]))
+                   for ep in live]))
+        health = tel.health_scores()
+        threshold = ccfg.telemetry.health_threshold
+        check(health[dead].score < threshold, f"{name}: the stopped shard's "
+              f"health {health[dead].score} >= {threshold}")
+        driver = Tracer()
+        driver.enable()
+        for b in shards + [joiner_board]:
+            b.tracer.enable()
+        with use_tracer(driver):
+            cluster.fetch(keys[:CLUSTER_READ_BATCH])
+            for ep in live:
+                cluster.ping(ep)
+        rings = cluster.collect_traces(probe_samples=3)
+        out_dir = os.path.join(ROOT, "chiprun_out")
+        os.makedirs(out_dir, exist_ok=True)
+        trace_path = os.path.join(out_dir, f"{name}_trace.json")
+        export.dump_merged_chrome_trace(trace_path, rings, driver.snapshot(),
+                                        tracer_=driver)
+        with open(trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        calls = {s.token: (export._us(s.t0, driver), export._us(s.t1, driver))
+                 for s in driver.snapshot() if s.name == "bridge.call"}
+        nested = 0
+        for e in events:
+            rp = e.get("args", {}).get("remote_parent")
+            if (e.get("pid", 1) > 1 and e["name"].startswith("bridge.serve.")
+                    and rp is not None):
+                c0, c1 = calls[rp]
+                check(c0 - 1e-3 <= e["ts"]
+                      and e["ts"] + e.get("dur", 0) <= c1 + 1e-3,
+                      f"{name}: {e['name']} outside its bridge.call")
+                nested += 1
+        check(nested > 0 and len(rings) == len(live),
+              f"{name}: {nested} serve spans nested, {len(rings)} rings")
+        lines.append({
+            "phase": name, "step": "telemetry_trace",
+            "scraped": scraped, "families_per_shard": len(per_shard[live[0]]),
+            "health": {ep: round(h.score, 4) for ep, h in health.items()},
+            "health_threshold": threshold, "pressure": tel.pressure(),
+            "trace": os.path.relpath(trace_path, ROOT),
+            "shard_rings": len(rings), "serve_spans_nested": nested,
+            "card": card_line()})
+    finally:
+        for c in clients:
+            c.close()
+        for b in boards:
+            b.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lines
+
+
 def tip_of(bc):
     best = bc.best_block_number
     h = bc.get_header_by_number(best)
@@ -3460,11 +3904,13 @@ def main() -> int:
     ap.add_argument("--new-accounts", type=int, default=20)
     ap.add_argument("--edge-rows", type=int, default=4097)
     ap.add_argument("--mirror-rows", type=int, default=10_485_760)
-    # 64 / 16: depths cut from 128 / 32 to keep the script,
-    # serve_erc20_100k_w8 included, inside 600 s
-    ap.add_argument("--transfer-blocks", type=int, default=64)
+    # 32 / 16 / 16: depths cut from 128 / 32 / 32 to keep the script,
+    # serve_erc20_100k_w8 and bridge_cluster_100k_w8 included, near
+    # 600 s (the 100k chain's 16 blocks still give live sync its pivot
+    # at 1 and two windows above it)
+    ap.add_argument("--transfer-blocks", type=int, default=32)
     ap.add_argument("--erc20-blocks", type=int, default=16)
-    ap.add_argument("--erc20-100k-blocks", type=int, default=32)
+    ap.add_argument("--erc20-100k-blocks", type=int, default=16)
     ap.add_argument("--par-transfer-blocks", type=int, default=32)
     ap.add_argument("--prebyz-blocks", type=int, default=16)
     ap.add_argument("--k6-rows", type=int, default=1 << 20)
@@ -4139,11 +4585,16 @@ def main() -> int:
     kesque_phases(args, torch, dev, launches, w8, rec, fs100k)
     chain100k = w8["chain_100k"]
     unloaded_100k = w8["blocks_per_s_100k"]
+    nodes_100k = w8["nodes_100k"]
+    small_chain = chains["replay_erc20"][1:3]  # (genesis spec, blocks)
     del w8, chains, rec, fs100k
     emit(live_sync_phase(args, torch, dev, launches, chain100k))
     for line in serve_phase(torch, dev, launches, chain100k, unloaded_100k):
         emit(line)
-    del chain100k
+    for line in bridge_cluster_phase(torch, dev, launches, chain100k,
+                                     nodes_100k, small_chain, unloaded_100k):
+        emit(line)
+    del chain100k, nodes_100k, small_chain
 
     tot = launches.total
     k1r_main = batch100["100x1+4"]
@@ -4163,7 +4614,9 @@ def main() -> int:
          "peer's reader thread; serve_erc20_100k_w8: the board's and the "
          "replica's genesis loads, the import's sender batches, the "
          "replica's per-block commits, the switch's rebuilt ancestor and "
-         "per-block adoption on both nodes",
+         "per-block adoption on both nodes; bridge_cluster_100k_w8: the "
+         "boards' genesis loads and the sender batches of every "
+         "ExecuteBlocks",
          "shape": "100 rows, 1 and 4 rate blocks mixed, column mode",
          "ms": k1r_main["column_kernel_us"] / 1e3,
          "plain_ms": k1r_main["plain_us"] / 1e3,
@@ -4183,7 +4636,9 @@ def main() -> int:
          "window of each windowed replay (the kesque replay among them), "
          "killed run, resume and windowed adoption; live_sync_erc20_100k: "
          "RegularSyncService's windowed import after the fast sync, 2; "
-         "serve_erc20_100k_w8: the import under RPC load, one a window",
+         "serve_erc20_100k_w8: the import under RPC load, one a window; "
+         "bridge_cluster_100k_w8: one a window of every ExecuteBlocks "
+         "batch, two shards' batches at once among them",
          "shape": "window_16x400",
          "ms": k5_window["k5_ms"], "plain_ms": k5_window["plain_ms"],
          "bound_ms": k5_window["bound_ms"], "bound_by": k5_window["bound_by"],

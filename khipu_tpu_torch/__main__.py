@@ -1,11 +1,12 @@
 """``python -m khipu_tpu_torch`` — node entry point (Khipu.scala:45 role).
 
-The port's copy of ``python -m khipu_tpu``, with its flags and one more:
+The port's copy of ``python -m khipu_tpu``, with one more flag:
 ``--device`` names where the node commits (``cuda`` by default, the
-card; ``cpu`` asks for the plain versions). The gRPC bridge is not
-ported (ROADMAP A11): the default bridge start raises
-``NotImplementedError`` through ``ServiceBoard.start_bridge``, so pass
-``--no-bridge`` until then.
+card; ``cpu`` asks for the plain versions). The node commits
+``COMMIT_WINDOW_BLOCKS`` blocks at a time. The bridge (bridge.py)
+starts by default on ``--bridge-port``, speaks HTTP, not gRPC, and its
+``ExecuteBlocks`` always commits on ``--device`` through the windowed
+device commit: the reference's ``--device-commit`` has no counterpart.
 """
 
 from __future__ import annotations
@@ -16,8 +17,12 @@ import signal
 import sys
 import threading
 
+# blocks a trie commit takes: the windowed device commit, one K5 launch
+# a window (the window chip_smoke's replays and bridge phase run)
+COMMIT_WINDOW_BLOCKS = 8
 
-def main(argv=None) -> int:
+
+def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
         prog="khipu_tpu_torch", description="khipu-tpu node on PyTorch"
     )
@@ -31,25 +36,27 @@ def main(argv=None) -> int:
     parser.add_argument("--no-rpc", action="store_true")
     parser.add_argument("--no-bridge", action="store_true")
     parser.add_argument("--no-network", action="store_true")
-    parser.add_argument("--device-commit", action="store_true",
-                        help="route the bridge's trie commits through "
-                        "the device (the bridge is not ported yet)")
     parser.add_argument("--device", default=None,
                         help="where the node commits: the card (default) "
                         "or cpu")
-    args = parser.parse_args(argv)
+    return parser.parse_args(argv)
 
+
+def start_node(args: argparse.Namespace):
+    """Build the board and start the services ``args`` ask for; returns
+    the started board (shut down here if a start fails)."""
     from khipu_tpu_torch.config import DbConfig, fixture_config
     from khipu_tpu_torch.service_board import ServiceBoard
 
+    config = fixture_config(chain_id=args.chain_id)
     config = dataclasses.replace(
-        fixture_config(chain_id=args.chain_id),
+        config,
         db=DbConfig(engine=args.engine, data_dir=args.data_dir),
+        sync=dataclasses.replace(
+            config.sync, commit_window_blocks=COMMIT_WINDOW_BLOCKS
+        ),
     )
     board = ServiceBoard(config, device=args.device)
-    stop = threading.Event()
-    signal.signal(signal.SIGINT, lambda *a: stop.set())
-    signal.signal(signal.SIGTERM, lambda *a: stop.set())
     try:
         print(f"chain head: #{board.blockchain.best_block_number}",
               flush=True)
@@ -57,15 +64,26 @@ def main(argv=None) -> int:
             port = board.start_rpc(port=args.rpc_port)
             print(f"JSON-RPC on http://127.0.0.1:{port}", flush=True)
         if not args.no_bridge:
-            port = board.start_bridge(
-                port=args.bridge_port, device_commit=args.device_commit
-            )
-            print(f"gRPC bridge on 127.0.0.1:{port}", flush=True)
+            port = board.start_bridge(port=args.bridge_port)
+            print(f"bridge on 127.0.0.1:{port}", flush=True)
         if not args.no_network:
             port = board.start_network(port=args.p2p_port)
             print(f"RLPx listening on {port}", flush=True)
             dport = board.start_discovery(port=0)
             print(f"discovery (UDP) on {dport}", flush=True)
+    except BaseException:
+        board.shutdown()
+        raise
+    return board
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    stop = threading.Event()
+    signal.signal(signal.SIGINT, lambda *a: stop.set())
+    signal.signal(signal.SIGTERM, lambda *a: stop.set())
+    board = start_node(args)
+    try:
         stop.wait()
     finally:
         board.shutdown()

@@ -7,8 +7,11 @@ stage's device validation, the windowed commit pipeline, the commit
 journal and the adaptive controller), the storage engine
 (``DbConfig``: engine, directory, cache size and the reorg depth limit,
 read by ``ServiceBoard``), the observability plane
-(``ObservabilityConfig``) and the serving plane (``ServingConfig``). A
-section or field comes back with the module that reads it.
+(``ObservabilityConfig``), the serving plane (``ServingConfig``), the
+sharded node-cache cluster (``ClusterConfig``, read by
+``ServiceBoard.start_cluster`` and the rebalancer) and its telemetry
+plane (``TelemetryConfig``). A section or field comes back with the
+module that reads it.
 
 Parity: config/KhipuConfig.scala:20-120 (nested Network/Sync/Db accessor
 objects over HOCON) and BlockchainConfig :185 (fork block numbers,
@@ -247,6 +250,41 @@ class ObservabilityConfig:
 
 
 @dataclass(frozen=True)
+class ClusterConfig:
+    """Sharded node-cache cluster (cluster/ package; P6 scaled out —
+    DistributedNodeStorage.scala:13-57 role). Empty ``endpoints``
+    disables clustering (single-node mode, the default)."""
+
+    endpoints: tuple = ()  # ("host:port", ...) bridge shards
+    replication: int = 2  # copies per key on the ring
+    vnodes: int = 64  # virtual nodes per endpoint
+    max_retries: int = 2  # extra attempts per endpoint
+    backoff_base: float = 0.05  # expo backoff first delay (s)
+    backoff_max: float = 1.0  # backoff ceiling (s)
+    breaker_failures: int = 5  # consecutive failures to open
+    breaker_reset: float = 30.0  # open -> half-open window (s)
+    probe_interval: float = 5.0  # health probe period (s)
+    down_after: int = 2  # missed probes to leave the ring
+    up_after: int = 1  # good probes to re-join
+    # per-RPC deadline (s) on bridge client calls — a hung shard
+    # surfaces as DEADLINE_EXCEEDED into the retry/breaker machinery
+    # instead of blocking a reader forever. None = no deadline
+    rpc_deadline: Optional[float] = 10.0
+    # seed for the client's retry-backoff jitter stream: the retry
+    # schedule must replay bit-identically under the chaos harness
+    # (KL003 — no unseeded RNG on cluster paths)
+    jitter_seed: int = 0
+    # live rebalance (cluster/rebalance.py): StreamNodeData page size
+    # per pull — bounded so a transfer never monopolizes a shard
+    rebalance_batch: int = 384
+    # admission pressure asserted while a transition epoch is open:
+    # at or above shed_write_at (writes shed first — they double into
+    # both epochs mid-move) but below shed_read_at so user reads keep
+    # flowing through the transfer storm
+    rebalance_pressure: float = 0.88
+
+
+@dataclass(frozen=True)
 class ServingConfig:
     """Serving plane (serving/ package): SLO-aware admission control +
     read-your-writes view between the JSON-RPC server and the
@@ -301,14 +339,88 @@ class ServingConfig:
 
 
 @dataclass(frozen=True)
+class TelemetryConfig:
+    """Cluster telemetry plane (observability/telemetry.py).
+
+    ``enabled=False`` (the default) is the zero-cost contract:
+    ``ServiceBoard.start_telemetry()`` returns ``None``, no poller or
+    watchdog thread starts, no ``GetMetrics`` RPC is ever issued, and
+    replay behavior is bit-exact identical. Enabled, a ``ClusterTelemetry``
+    poller scrapes every shard registry over the bridge on a
+    seeded-jitter interval (KL003: the jitter stream comes from
+    ``jitter_seed``, never wall-clock entropy) and a ``Watchdog`` daemon
+    watches the collector pipeline gauges on ``time.monotonic()``."""
+
+    enabled: bool = False
+    # shard scrape cadence (s); actual sleep is interval * (0.8..1.2)
+    # drawn from a seeded RNG so concurrent pollers de-phase
+    scrape_interval: float = 5.0
+    jitter_seed: int = 0
+    # a shard whose last successful scrape is older than this stops
+    # contributing samples to the merged exposition (age-out) and its
+    # freshness health component decays to zero
+    staleness_s: float = 15.0
+    # khipu_shard_health below this marks the shard degraded in
+    # khipu_cluster_report (and is the score the 2-shard kill test pins)
+    health_threshold: float = 0.5
+    # pipeline stall watchdog (one daemon thread, monotonic clock)
+    watchdog: bool = True
+    watchdog_interval: float = 1.0
+    # stage depth > 0 with busy_s flat for this long => stage_stall trip
+    stall_after_s: float = 5.0
+    # journal pending() beyond this depth => journal_runaway trip
+    journal_runaway_depth: int = 8
+    # phase_anomaly trips (edge-triggered) when a phase's share of
+    # total canonical phase wall time exceeds its ceiling — tuple of
+    # (phase, ceiling) pairs (frozen dataclass: no dict default). With
+    # the off-driver seal stage the driver's window.seal is a cheap
+    # close-out (anything above 0.3 means pack work leaked back onto
+    # the driver); the heavy pack+upload lives in window.pack, which on
+    # an overlapped pipeline should stay under ~0.85 of phase time.
+    # "senders" is the driver-foreground share of sender recovery: with
+    # the prefetch stage landed it should be near zero (cache hits) —
+    # above 0.45 means prefetch leaked back onto the driver (thread
+    # dead, cache thrashing, or prefetch disabled in a config that
+    # expects it). "execute" guards the scheduled fast path the same
+    # way: sustained > 0.9 means the batch executor stopped carrying
+    # its share (e.g. everything mispredicting into fallback). The
+    # ceiling is calibrated against the WORST-case carried fixture:
+    # erc20_heavy (two mapping SSTOREs per tx, all contract calls)
+    # measures ~0.45 execute share with the templated lane working and
+    # buries the driver past 0.9 only when the calls fall back to the
+    # interpreter — so a trip is a lane outage, not fixture noise.
+    phase_share_ceilings: tuple = (("window.seal", 0.3),
+                                   ("window.pack", 0.85),
+                                   ("senders", 0.45),
+                                   ("execute", 0.9),)
+    # don't judge shares until this much canonical phase time has been
+    # observed (a 0.1 s startup blip trivially exceeds any ceiling)
+    phase_share_min_total_s: float = 5.0
+    # reorg_storm trips (edge-triggered) when this many chain switches
+    # land within the window — healthy tip-following reorgs are rare
+    # singletons; a burst means competing miners, an unstable peer set,
+    # or an eclipse attempt feeding us alternating branches
+    reorg_storm_count: int = 3
+    reorg_storm_window_s: float = 60.0
+    # gauge families echoed into khipu_cluster_report per shard
+    key_gauges: tuple = (
+        "khipu_pipeline_in_flight",
+        "khipu_journal_depth",
+        "khipu_stage_persist_depth",
+    )
+
+
+@dataclass(frozen=True)
 class KhipuConfig:
     blockchain: BlockchainConfig = field(default_factory=BlockchainConfig)
     db: DbConfig = field(default_factory=DbConfig)
     sync: SyncConfig = field(default_factory=SyncConfig)
+    cluster: ClusterConfig = field(default_factory=ClusterConfig)
     observability: ObservabilityConfig = field(
         default_factory=ObservabilityConfig
     )
     serving: ServingConfig = field(default_factory=ServingConfig)
+    telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
 
 
 def fixture_config(

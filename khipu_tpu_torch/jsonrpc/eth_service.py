@@ -7,10 +7,9 @@ NetService, Web3Service. Hex-string codecs follow the JSON-RPC spec
 
 The port's copy of ``khipu_tpu.jsonrpc.eth_service``: the same methods,
 error codes and JSON shapes. The observability RPCs read the port's
-plane (``observability/``). The sharded cluster and its telemetry
-federation are not ported (ROADMAP A11): ``cluster=`` and
-``telemetry=`` raise ``NotImplementedError``, and the cluster RPCs
-answer as the reference does with no telemetry attached. With a read
+plane (``observability/``), the sharded cluster's counters
+(``cluster=``, a ``ShardedNodeClient``) and its telemetry federation
+(``telemetry=``, a ``ClusterTelemetry``). With a read
 view, a state read at a head tag that falls through to the store
 executes at the view's ``committed_header()`` (the highest header at or
 below best whose state is stored: best, or mid-window an earlier one),
@@ -78,11 +77,6 @@ class EthService:
         telemetry=None,
         reorg_manager=None,
     ):
-        if cluster is not None or telemetry is not None:
-            raise NotImplementedError(
-                "the sharded cluster and its telemetry are not ported "
-                "(ROADMAP A11)"
-            )
         self.blockchain = blockchain
         self.config = config
         # `is None`, not `or`: an EMPTY pool is falsy (__len__ == 0),
@@ -101,6 +95,13 @@ class EthService:
         # khipu_metrics; dispatch-side enforcement lives in
         # JsonRpcServer, which holds the same object
         self.serving = serving
+        # sharded node-cache cluster client (cluster/client.py); when
+        # set, khipu_metrics surfaces its per-shard counters
+        self.cluster = cluster
+        # cluster telemetry plane (observability/telemetry.py); when
+        # set, khipu_cluster_metrics_text / khipu_cluster_report serve
+        # the merged shard view
+        self.telemetry = telemetry
         # the flight recorder the khipu_traces / khipu_dump_chrome_trace
         # RPCs serve from (a board-owned instance when embedded in a
         # ServiceBoard; the process default otherwise)
@@ -576,6 +577,10 @@ class EthService:
                 "readSeconds": round(src.clock.elapsed_ns / 1e9, 6)
                 if hasattr(src, "clock") else None,
             }
+        if self.cluster is not None:
+            # per-shard hit rate / latency / failovers / breaker state
+            # (cluster/client.py ShardMetrics)
+            out["cluster"] = self.cluster.metrics_snapshot()
         # window-pipeline gauges (sync/replay.PIPELINE_GAUGES): depth,
         # windows sealed/collected/in-flight, driver stall vs collector
         # busy seconds, and the occupancy fraction of the last run
@@ -642,15 +647,22 @@ class EthService:
         return REGISTRY.prometheus_text()
 
     def khipu_cluster_metrics_text(self) -> str:
-        """Merged cluster exposition: the cluster telemetry plane is
-        not ported (ROADMAP A11), so this answers as the reference does
-        with none attached."""
-        raise RpcError(-32000, "cluster telemetry not enabled")
+        """Merged cluster exposition (observability/telemetry.py):
+        every scraped shard's families in one Prometheus document —
+        counters/gauges ``shard``-labeled, aligned histograms summed,
+        stale shards aged out. Requires an attached ClusterTelemetry
+        (``ServiceBoard.start_telemetry``)."""
+        if self.telemetry is None:
+            raise RpcError(-32000, "cluster telemetry not enabled")
+        return self.telemetry.cluster_text()
 
     def khipu_cluster_report(self) -> dict:
-        """Cluster health report: as ``khipu_cluster_metrics_text``,
-        the telemetry plane is not ported (ROADMAP A11)."""
-        raise RpcError(-32000, "cluster telemetry not enabled")
+        """Cluster health report: per-shard up/down, scrape staleness,
+        health-score breakdown, key gauges, and the admission-facing
+        pressure value."""
+        if self.telemetry is None:
+            raise RpcError(-32000, "cluster telemetry not enabled")
+        return self.telemetry.report()
 
     def khipu_traces(self) -> dict:
         """Flight-recorder summary (observability/export.snapshot):
@@ -712,11 +724,24 @@ class EthService:
     def khipu_dump_chrome_trace(self, path: str) -> dict:
         """Write the ring's spans as Chrome trace_event JSON (load in
         perfetto / chrome://tracing); returns {path, spans, shards}.
-        The merge of shard rings comes with the cluster (ROADMAP A11),
-        so ``shards`` is 0."""
+        With a cluster attached, every reachable shard's span ring is
+        pulled over the bridge and merged onto the driver timeline
+        (offset-corrected — observability/export.merged_chrome_trace),
+        so the dump is ONE nested driver -> bridge -> shard trace."""
         spans = self.tracer.snapshot()
-        export.dump_chrome_trace(path, spans, tracer_=self.tracer)
-        return {"path": path, "spans": len(spans), "shards": 0}
+        shards = []
+        if self.cluster is not None:
+            try:
+                shards = self.cluster.collect_traces()
+            except Exception:
+                shards = []
+        if shards:
+            export.dump_merged_chrome_trace(
+                path, shards, spans, tracer_=self.tracer
+            )
+        else:
+            export.dump_chrome_trace(path, spans, tracer_=self.tracer)
+        return {"path": path, "spans": len(spans), "shards": len(shards)}
 
     # ------------------------------------------------------------ codecs
 

@@ -1,7 +1,7 @@
 """Flight-recorder observability: block-lifecycle tracing, the
 movement ledger, the tx passport and trace exports.
 
-The port's copy of ``khipu_tpu.observability``, its one-process half:
+The port's copy of ``khipu_tpu.observability``:
 
 * registry.py — the unified Counter/Gauge/Histogram registry and its
   Prometheus text exposition;
@@ -14,13 +14,11 @@ The port's copy of ``khipu_tpu.observability``, its one-process half:
 * costmodel.py — per-window roofline verdicts against the H100's
   measured floors;
 * export.py — report payloads and Chrome ``trace_event`` JSON for
-  perfetto;
+  perfetto, one process's or merged across the cluster's shards;
 * journey.py — the per-transaction lineage plane;
-* telemetry.py — the metrics wire codec a read replica's scrape
-  surface answers in.
-
-The cluster telemetry federation (the rest of ``telemetry.py``) and
-export's cluster half need the bridge and come with it (ROADMAP A11).
+* telemetry.py — the metrics wire codec, the cluster federation
+  (``ClusterTelemetry`` scraping every shard's bridge), per-shard
+  ``HealthScore`` and the pipeline stall ``Watchdog``.
 """
 
 from khipu_tpu_torch.observability.trace import (  # noqa: F401

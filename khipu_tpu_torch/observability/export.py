@@ -1,12 +1,10 @@
 """Serve the flight recorder: report payloads + Chrome trace JSON.
 
-The port's copy of the one-process half of
-``khipu_tpu.observability.export``. Every export works on ONE
+The port's copy of ``khipu_tpu.observability.export``. Every export works on ONE
 ``tracer.snapshot()`` so a live workload can't tear a report:
 
 * ``snapshot`` / ``trace_block(n)`` — the structured aggregates the JAX
-  package serves as its ``khipu_traces`` / ``khipu_trace_block`` RPCs
-  (the port's RPC surface comes with its serving plane);
+  package serves as its ``khipu_traces`` / ``khipu_trace_block`` RPCs;
 * ``chrome_trace()`` / ``dump_chrome_trace(path)`` — Chrome
   ``trace_event`` JSON (the ``traceEvents`` array format) loadable in
   perfetto / chrome://tracing. Spans become complete ("X") events;
@@ -15,8 +13,15 @@ The port's copy of the one-process half of
   so the driver -> stage-thread handoff renders as an arrow across
   thread tracks.
 
-The cluster half (``shard_timeline``, ``merged_chrome_trace``) needs
-the bridge's ``GetTraceSpans`` and comes with it.
+The CLUSTER half: ``merged_chrome_trace`` overlays shard span rings
+(pulled over the bridge's ``GetTraceSpans``) onto the driver timeline.
+Shard clocks are independent, so each shard timeline is shifted by a
+Ping-based NTP-style offset estimate (``shard_timeline``) — ``offset =
+shard_now - (t_send + t_recv)/2``, error bounded by RTT/2 — and each
+server span whose propagated parent token resolves in the driver ring is
+clamped INTO its client RPC span (the residual RTT/2 error must not
+render an effect before its cause). Every merged dump is one nested
+driver → bridge → shard trace.
 """
 
 from __future__ import annotations
@@ -212,4 +217,143 @@ def dump_chrome_trace(path: str,
     """Write the perfetto-loadable JSON to ``path``; returns the path."""
     with open(path, "w") as f:
         json.dump(chrome_trace(spans, tracer_), f)
+    return path
+
+
+# ---------------------------------------------------- cluster overlay
+
+
+def shard_timeline(client, endpoint: str = "",
+                   probe_samples: int = 5) -> dict:
+    """Pull ONE shard's span ring + clock estimate over the bridge:
+    ``client`` is a BridgeClient (or anything with ``clock_probe`` /
+    ``get_trace_spans``). Returns the shard descriptor
+    ``merged_chrome_trace`` consumes: {endpoint, offset_s, rtt_s,
+    traceId, spans} where ``offset_s`` is (shard clock - local clock)
+    from the minimum-RTT Ping probe and every span carries absolute
+    shard-wall ``t0_wall``/``t1_wall`` seconds."""
+    offset_s, rtt_s = client.clock_probe(samples=probe_samples)
+    data = client.get_trace_spans()
+    return {
+        "endpoint": endpoint,
+        "offset_s": offset_s,
+        "rtt_s": rtt_s,
+        "traceId": data.get("traceId", ""),
+        "spans": data.get("spans", []),
+    }
+
+
+def merged_chrome_trace(shards: Sequence[dict],
+                        spans: Optional[Sequence[Span]] = None,
+                        tracer_: Optional[Tracer] = None) -> dict:
+    """One Chrome trace spanning driver → bridge → shards.
+
+    Driver spans render as pid 1 (exactly ``chrome_trace``); each shard
+    becomes its own process (pid 2+i, named after its endpoint) with
+    its timestamps mapped onto the driver timeline:
+
+        driver_wall = shard_wall - offset_s
+        ts_us       = (driver_wall - tracer.epoch_wall) * 1e6
+
+    A server span whose propagated ``remote_parent`` token resolves in
+    the driver ring (same ``remote_trace`` id) is CLAMPED into its
+    client RPC span's interval: the offset estimate is only good to
+    RTT/2, and an effect must never render before its cause — after
+    clamping, nesting is non-negative by construction (the acceptance
+    gate). The raw corrected timestamp is kept in args for audit. A
+    cross-process flow arrow (client span start → server span start)
+    makes the RPC edge explicit.
+    """
+    t = tracer_ if tracer_ is not None else tracer
+    if spans is None:
+        spans = t.snapshot()
+    doc = chrome_trace(spans, tracer_=t)
+    events = doc["traceEvents"]
+    local_by_id = {s.sid: s for s in spans}
+    shard_meta = []
+    for i, sh in enumerate(shards):
+        pid = 2 + i
+        offset = sh.get("offset_s", 0.0)
+        rtt = sh.get("rtt_s", 0.0)
+        label = sh.get("endpoint") or f"shard-{i}"
+        events.append({
+            "name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+            "args": {"name": f"shard {label}"},
+        })
+        tids = {}
+        nested = 0
+        for sp in sh.get("spans", ()):
+            tid = sp.get("tid", 0)
+            if tid not in tids:
+                tids[tid] = sp.get("thread_name") or f"thread-{tid}"
+                events.append({
+                    "name": "thread_name", "ph": "M", "pid": pid,
+                    "tid": tid, "args": {"name": tids[tid]},
+                })
+            # shard wall -> driver timeline, offset-corrected
+            ts = (sp["t0_wall"] - offset - t.epoch_wall) * 1e6
+            dur = max(0.0, (sp["t1_wall"] - sp["t0_wall"]) * 1e6)
+            args = dict(sp.get("tags", {}))
+            if sp.get("parent"):
+                args["parentSpan"] = sp["parent"]
+            if sp.get("error"):
+                args["error"] = True
+            args["clockOffsetSeconds"] = round(offset, 6)
+            rparent = args.get("remote_parent")
+            parent = (
+                local_by_id.get(rparent)
+                if args.get("remote_trace") == t.trace_id
+                and rparent is not None else None
+            )
+            if parent is not None:
+                p0 = _us(parent.t0, t)
+                p1 = _us(parent.t1, t)
+                args["correctedTsUs"] = round(ts, 3)
+                # clamp into the client RPC span: duration first (a
+                # server span cannot outlast the round trip that
+                # carried it), then the start
+                dur = min(dur, max(0.0, p1 - p0))
+                ts = min(max(ts, p0), max(p0, p1 - dur))
+                nested += 1
+                events.append({
+                    "name": f"rpc→{sp['name']}", "ph": "s",
+                    "id": rparent, "pid": 1, "tid": parent.tid,
+                    "ts": p0, "cat": "rpc",
+                })
+                events.append({
+                    "name": f"rpc→{sp['name']}", "ph": "f", "bp": "e",
+                    "id": rparent, "pid": pid, "tid": tid,
+                    "ts": round(ts, 3), "cat": "rpc",
+                })
+            base = {
+                "name": sp["name"], "pid": pid, "tid": tid,
+                "args": args,
+            }
+            if dur > 0:
+                events.append({
+                    **base, "ph": "X", "ts": round(ts, 3),
+                    "dur": round(dur, 3),
+                })
+            else:
+                events.append(
+                    {**base, "ph": "i", "ts": round(ts, 3), "s": "p"}
+                )
+        shard_meta.append({
+            "endpoint": label,
+            "pid": pid,
+            "traceId": sh.get("traceId", ""),
+            "offsetSeconds": round(offset, 6),
+            "rttSeconds": round(rtt, 6),
+            "spans": len(sh.get("spans", ())),
+            "nestedUnderDriver": nested,
+        })
+    doc["otherData"]["shards"] = shard_meta
+    return doc
+
+
+def dump_merged_chrome_trace(path: str, shards: Sequence[dict],
+                             spans: Optional[Sequence[Span]] = None,
+                             tracer_: Optional[Tracer] = None) -> str:
+    with open(path, "w") as f:
+        json.dump(merged_chrome_trace(shards, spans, tracer_), f)
     return path

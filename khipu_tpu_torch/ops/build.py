@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from pathlib import Path
@@ -33,8 +34,19 @@ NVCC_FLAGS = [
 
 _LIB = None
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 # what the last build printed (ptxas register and spill report)
 BUILD_LOG: List[str] = []
+
+
+def count_launch(module: str, counter: str) -> None:
+    """One more launch on the counter ``counter`` of the wrapper module
+    named ``module``. Every wrapper counts here, under one lock: kernels
+    launch from several threads at once (the replay driver and its
+    sender-prefetch thread, two bridges' batches)."""
+    mod = sys.modules[module]
+    with _COUNT_LOCK:
+        setattr(mod, counter, getattr(mod, counter) + 1)
 
 
 def sources() -> List[Path]:

@@ -3,15 +3,14 @@ and K1r (messages of any lengths in one blob, the pad fused) in
 ``csrc/keccak.cu``.
 
 ``FIXED_LAUNCHES`` counts K1f's launches and ``RAGGED_LAUNCHES`` K1r's;
-each is raised only where its kernel is launched, under a lock (the
-replay driver and its sender-prefetch thread launch K1r at once). The
+each is raised only where its kernel is launched, through
+``build.count_launch``. The
 library is built at first use (``ops/build.py``); importing this module
 needs neither ``nvcc`` nor a card.
 """
 
 from __future__ import annotations
 
-import threading
 from typing import Optional
 
 import numpy as np
@@ -21,7 +20,6 @@ from khipu_tpu_torch.ops import build
 
 FIXED_LAUNCHES = 0
 RAGGED_LAUNCHES = 0
-_COUNT_LOCK = threading.Lock()
 # K1r's column mode (five threads a message) up to this many rows, row
 # mode (one thread a message) above. While a batch's warps (six messages
 # each) fit one to an SM sub-partition (132 SMs x 4 x 6 = 3,168 rows),
@@ -76,8 +74,7 @@ def absorb_fixed(
 
 def _count(name: str) -> None:
     """One more launch on the counter ``name``; safe across threads."""
-    with _COUNT_LOCK:
-        globals()[name] += 1
+    build.count_launch(__name__, name)
 
 
 def ragged_mode(n: int) -> str:

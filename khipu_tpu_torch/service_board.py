@@ -10,11 +10,12 @@ The port's copy of ``khipu_tpu.service_board``. The board commits on one
 device (``device=None`` means the card, and raises without one): the
 genesis loads there, the boot recovery pass settles pending intents
 there, and the sync services it starts import there (K5 a window, K1r
-a block). ``start_serving`` builds the serving plane whose read view
-``start_regular_sync`` hands to the windowed import. The gRPC bridge,
-the sharded cluster, its telemetry and live rebalancing are not ported
-(ROADMAP A11): ``start_bridge``, ``start_cluster``, ``start_telemetry``,
-``join_shard`` and ``retire_shard`` raise ``NotImplementedError``.
+a block), and so does the bridge's ``ExecuteBlocks``. ``start_serving``
+builds the serving plane whose read view ``start_regular_sync`` hands to
+the windowed import. ``start_cluster`` makes the node stores read
+through the sharded node-cache cluster (with the health prober),
+``join_shard`` / ``retire_shard`` rebalance it live, and
+``start_telemetry`` federates the shards' metrics.
 """
 
 from __future__ import annotations
@@ -29,8 +30,6 @@ from khipu_tpu_torch.domain.blockchain import Blockchain, GenesisSpec
 from khipu_tpu_torch.observability.trace import Tracer, apply_config
 from khipu_tpu_torch.storage.storages import Storages
 from khipu_tpu_torch.txpool import OmmersPool, PendingTransactionsPool
-
-_A11 = "is not ported (ROADMAP A11: the bridge and the sharded cluster)"
 
 
 class ServiceBoard:
@@ -73,11 +72,17 @@ class ServiceBoard:
         apply_config(config.observability, self.tracer)
         self.node_key = self._load_or_create_node_key()
         self._rpc_server = None
+        self._bridge_server = None
         self._peer_manager = None
         self._discovery = None
         self._regular_sync = None
         self._fast_sync = None
         self._serving = None
+        self._cluster = None
+        self._cluster_health = None
+        self._rebalancer = None
+        self._telemetry = None
+        self._watchdog = None
 
     # ---------------------------------------------------------- node key
 
@@ -116,12 +121,13 @@ class ServiceBoard:
 
         service = EthService(
             self.blockchain, self.config, self.tx_pool,
-            tracer=self.tracer,
+            cluster=self._cluster, tracer=self.tracer,
             read_view=(
                 self._serving.read_view
                 if self._serving is not None else None
             ),
             serving=self._serving,
+            telemetry=self._telemetry,
             reorg_manager=(
                 self._regular_sync.reorg
                 if self._regular_sync is not None else None
@@ -149,12 +155,23 @@ class ServiceBoard:
         )
         return self._rpc_server.start()
 
-    def start_bridge(self, host: str = "127.0.0.1", port: int = 50051,
-                     device_commit: bool = False) -> int:
-        """The gRPC bridge: not ported (ROADMAP A11). The machine with
-        the card has no gRPC package, so its transport is A11's first
-        decision."""
-        raise NotImplementedError(f"the gRPC bridge {_A11}")
+    def start_bridge(self, host: str = "127.0.0.1",
+                     port: int = 50051) -> int:
+        """The bridge (bridge.py, HTTP transport): ``ExecuteBlocks``
+        commits on the board's device (the plain versions on a CPU
+        board), through the windowed commit at
+        ``commit_window_blocks > 1``."""
+        from khipu_tpu_torch.bridge import BridgeServer
+
+        self._bridge_server = BridgeServer(
+            self.blockchain, self.config, tracer=self.tracer,
+            device=self.device,
+        )
+        return self._bridge_server.start(host, port)
+
+    @property
+    def bridge(self):
+        return self._bridge_server
 
     def start_network(self, host: str = "127.0.0.1", port: int = 30303) -> int:
         from khipu_tpu_torch.network.host_service import HostService
@@ -180,19 +197,119 @@ class ServiceBoard:
         return self._peer_manager.listen(host, port)
 
     def start_cluster(self, probe: bool = True):
-        """Join the sharded node-cache cluster: not ported (ROADMAP
-        A11)."""
-        raise NotImplementedError(f"the sharded node-cache cluster {_A11}")
+        """Join the sharded node-cache cluster (cluster/ package; the
+        P6 DistributedNodeStorage role scaled out): the account and
+        storage node stores become cluster-backed read-throughs —
+        every local miss consults the replica shards before giving up
+        — and the health monitor keeps the ring honest. Requires
+        ``config.cluster.endpoints``."""
+        cc = self.config.cluster
+        if not cc.endpoints:
+            raise RuntimeError("config.cluster.endpoints is empty")
+        from khipu_tpu_torch.cluster import HealthMonitor, ShardedNodeClient
+        from khipu_tpu_torch.storage.remote import RemoteReadThroughNodeStorage
+
+        # the cluster's last-resort fallback reads the LOCAL stores
+        # only — captured before wrapping, so a total-cluster outage
+        # cannot recurse back through the read-through wrappers
+        inners = (
+            self.storages.account_node_storage,
+            self.storages.storage_node_storage,
+            self.storages.evmcode_storage,
+        )
+
+        def local_only(h):
+            for s in inners:
+                v = s.get(h)
+                if v is not None:
+                    return v
+            return None
+
+        self._cluster = ShardedNodeClient(
+            cc.endpoints,
+            replication=cc.replication,
+            vnodes=cc.vnodes,
+            max_retries=cc.max_retries,
+            backoff_base=cc.backoff_base,
+            backoff_max=cc.backoff_max,
+            breaker_failures=cc.breaker_failures,
+            breaker_reset=cc.breaker_reset,
+            local_get=local_only,
+            rpc_deadline=cc.rpc_deadline,
+            jitter_seed=cc.jitter_seed,
+        )
+        self.storages.account_node_storage = (
+            RemoteReadThroughNodeStorage.from_cluster(
+                self.storages.account_node_storage, self._cluster
+            )
+        )
+        self.storages.storage_node_storage = (
+            RemoteReadThroughNodeStorage.from_cluster(
+                self.storages.storage_node_storage, self._cluster
+            )
+        )
+        if probe:
+            self._cluster_health = HealthMonitor(
+                self._cluster,
+                interval=cc.probe_interval,
+                down_after=cc.down_after,
+                up_after=cc.up_after,
+            )
+            self._cluster_health.start()
+        return self._cluster
+
+    @property
+    def cluster(self):
+        return self._cluster
 
     # -------------------------------------------------- elastic membership
 
+    def _ensure_rebalancer(self):
+        """Lazy rebalance driver (cluster/rebalance.py), wired into the
+        watchdog (``rebalance_stuck``) and the admission plane
+        (``rebalance_pressure``) when those exist."""
+        if self._cluster is None:
+            raise RuntimeError("start_cluster first")
+        if self._rebalancer is None:
+            from khipu_tpu_torch.cluster import Rebalancer
+
+            cc = self.config.cluster
+            self._rebalancer = Rebalancer(
+                self._cluster,
+                batch=cc.rebalance_batch,
+                pressure=cc.rebalance_pressure,
+                log=print,
+            )
+            if self._watchdog is not None:
+                self._watchdog.attach_rebalance(
+                    self._rebalancer.watch_source
+                )
+            if self._serving is not None:
+                from khipu_tpu_torch.serving import rebalance_pressure
+
+                self._serving.admission.add_signal(
+                    rebalance_pressure(self._rebalancer)
+                )
+        return self._rebalancer
+
+    @property
+    def rebalancer(self):
+        return self._rebalancer
+
     def join_shard(self, endpoint: str) -> int:
-        """Live scale-out: not ported (ROADMAP A11)."""
-        raise NotImplementedError(f"live rebalancing {_A11}")
+        """Live scale-out: stream the key ranges ``endpoint`` gains in
+        the next ring epoch onto it, then cut the ring over atomically
+        — reads keep flowing (and keep being correct) throughout.
+        Returns the number of keys streamed. Crash-safe: an
+        interrupted join leaves the committed epoch serving;
+        ``board.rebalancer.recover()`` resumes or rolls back."""
+        return self._ensure_rebalancer().join(endpoint)
 
     def retire_shard(self, endpoint: str) -> int:
-        """Live scale-in: not ported (ROADMAP A11)."""
-        raise NotImplementedError(f"live rebalancing {_A11}")
+        """Live scale-in: stream the retiring shard's owned ranges to
+        the survivors, cut over, then drop it from the membership and
+        the health prober. Returns the number of keys streamed."""
+        return self._ensure_rebalancer().retire(endpoint)
 
     def start_serving(self, **kwargs):
         """Stand up the serving plane (serving/ package —
@@ -204,6 +321,7 @@ class ServiceBoard:
         plane)."""
         from khipu_tpu_torch.serving import ServingPlane
 
+        kwargs.setdefault("telemetry", self._telemetry)
         self._serving = ServingPlane.build(
             self.blockchain, self.config, tx_pool=self.tx_pool,
             **kwargs,
@@ -215,8 +333,61 @@ class ServiceBoard:
         return self._serving
 
     def start_telemetry(self, endpoints=None):
-        """The cluster telemetry plane: not ported (ROADMAP A11)."""
-        raise NotImplementedError(f"the cluster telemetry plane {_A11}")
+        """Stand up the cluster telemetry plane
+        (observability/telemetry.py — docs/observability.md): a
+        ``ClusterTelemetry`` poller scraping every shard's registry over
+        the ``GetMetrics`` bridge RPC, plus the pipeline stall
+        ``Watchdog``. Returns ``None`` when
+        ``config.telemetry.enabled`` is False — the zero-cost contract:
+        no threads, no RPCs, bit-exact replay.
+
+        Call AFTER ``start_cluster`` (breaker state feeds the health
+        score) and around ``start_serving`` in either order — an
+        existing serving plane gains the cluster-pressure signal here;
+        a later ``start_serving`` should pass
+        ``telemetry=board.telemetry``."""
+        tc = self.config.telemetry
+        if not tc.enabled:
+            return None
+        from khipu_tpu_torch.observability.telemetry import (
+            ClusterTelemetry,
+            Watchdog,
+        )
+
+        eps = tuple(
+            endpoints if endpoints is not None
+            else self.config.cluster.endpoints
+        )
+        self._telemetry = ClusterTelemetry(
+            eps, config=tc, cluster=self._cluster, tracer=self.tracer,
+        )
+        self._telemetry.start()
+        if tc.watchdog:
+            self._watchdog = Watchdog(
+                config=tc,
+                journal_depth=(
+                    (lambda: self.storages.window_journal.depth)
+                    if self.config.sync.commit_journal else None
+                ),
+                telemetry=self._telemetry,
+                tracer=self.tracer,
+                rebalance=(
+                    self._rebalancer.watch_source
+                    if self._rebalancer is not None else None
+                ),
+            )
+            self._watchdog.start()
+        if self._serving is not None:
+            from khipu_tpu_torch.serving import cluster_pressure
+
+            self._serving.admission.add_signal(
+                cluster_pressure(self._telemetry)
+            )
+        return self._telemetry
+
+    @property
+    def telemetry(self):
+        return self._telemetry
 
     def start_regular_sync(self, **kwargs):
         """Tip-following block import over the peer pool
@@ -228,11 +399,17 @@ class ServiceBoard:
         if self._peer_manager is None:
             raise RuntimeError("start_network first")
         kwargs.setdefault("device", self.device)
+        kwargs.setdefault("cluster", self._cluster)
         if self._serving is not None:
             kwargs.setdefault("read_view", self._serving.read_view)
         self._regular_sync = RegularSyncService(
             self.blockchain, self.config, self._peer_manager, **kwargs
         )
+        if self._watchdog is not None:
+            # reorg-rate storm detector samples the switch counter
+            self._watchdog.attach_reorg(
+                self._regular_sync.reorg.watch_source
+            )
         if self._rpc_server is not None:
             # RPC came up first: hang the filter manager's reorg hook
             # on the freshly-built switch path
@@ -250,6 +427,7 @@ class ServiceBoard:
         if self._peer_manager is None:
             raise RuntimeError("start_network first")
         kwargs.setdefault("device", self.device)
+        kwargs.setdefault("cluster", self._cluster)
         self._fast_sync = FastSyncService(
             self.blockchain, self.config, self._peer_manager, **kwargs
         )
@@ -271,13 +449,20 @@ class ServiceBoard:
     def shutdown(self) -> None:
         """CoordinatedShutdown (Khipu.scala:58-66): services first,
         storages flushed+closed last."""
-        for svc in (self._rpc_server, self._peer_manager,
-                    self._discovery):
+        for svc in (self._rpc_server, self._bridge_server,
+                    self._peer_manager, self._discovery,
+                    self._cluster_health, self._watchdog,
+                    self._telemetry):
             if svc is not None:
                 try:
                     svc.stop()
                 except Exception:
                     pass
+        if self._cluster is not None:
+            try:
+                self._cluster.close()
+            except Exception:
+                pass
         try:
             from khipu_tpu_torch.ledger.ledger import shutdown_exec_pool
 

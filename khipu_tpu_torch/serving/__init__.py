@@ -18,9 +18,7 @@ RPC server uses (``admit`` / ``finish``) plus the snapshot
 ``khipu_metrics`` embeds. The plane is OPT-IN: a ``JsonRpcServer``
 without one dispatches directly, zero overhead.
 
-The port's copy of ``khipu_tpu.serving``. The cluster telemetry signal
-is not ported (ROADMAP A11): ``build(telemetry=)`` raises
-``NotImplementedError``.
+The port's copy of ``khipu_tpu.serving``.
 """
 
 from __future__ import annotations
@@ -115,11 +113,8 @@ class ServingPlane:
         """The standard wiring (what ``ServiceBoard.start_serving``
         calls): a ReadView over ``blockchain`` plus admission fed by
         every pressure signal the node can report — window-pipeline
-        occupancy, commit-journal depth and txpool fill."""
-        if telemetry is not None:
-            raise NotImplementedError(
-                "the cluster telemetry plane is not ported (ROADMAP A11)"
-            )
+        occupancy, commit-journal depth, txpool fill, and (when a
+        ``ClusterTelemetry`` is attached) worst-shard cluster health."""
         cfg = config or KhipuConfig()
         signals: List[Callable[[], float]] = [pipeline_pressure()]
         if cfg.sync.commit_journal:
@@ -128,6 +123,8 @@ class ServingPlane:
             ))
         if tx_pool is not None:
             signals.append(txpool_pressure(tx_pool))
+        if telemetry is not None:
+            signals.append(cluster_pressure(telemetry))
         signals.extend(extra_signals or [])
         return cls(
             config=cfg.serving,

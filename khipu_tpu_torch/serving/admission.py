@@ -25,9 +25,9 @@ everything:
 The port's copy of ``khipu_tpu.serving.admission``. The pipeline signal
 reads the port's ``PIPELINE_GAUGES`` (``depth`` is the last run's
 pipeline depth, ``in_flight`` the windows sealed and not yet saved, as
-in the reference). The rebalance and cluster signals need the sharded
-cluster and its telemetry (ROADMAP A11): their factories raise
-``NotImplementedError``.
+in the reference). The rebalance signal reads the cluster's
+``Rebalancer``, the cluster signal a ``ClusterTelemetry``'s worst-shard
+health.
 """
 
 from __future__ import annotations
@@ -371,11 +371,19 @@ def txpool_pressure(pool) -> Callable[[], float]:
 
 
 def rebalance_pressure(rebalancer) -> Callable[[], float]:
-    """Live-rebalance shed signal: the cluster's rebalancer is not
-    ported (ROADMAP A11)."""
-    raise NotImplementedError(
-        "the cluster rebalancer is not ported (ROADMAP A11)"
-    )
+    """Live-rebalance shed signal (cluster/rebalance.py): while a
+    transition epoch is open the rebalancer asserts a fixed pressure
+    (``ClusterConfig.rebalance_pressure``, default 0.88) — above the
+    write shed threshold, so user writes stop doubling into both
+    epochs' replica sets during the transfer storm, but below the read
+    threshold, so cheap reads ride through the move untouched. Exactly
+    zero when idle."""
+
+    def signal() -> float:
+        return rebalancer.pressure()
+
+    signal.signal_name = "rebalance"
+    return signal
 
 
 def replica_lag_pressure(replica,
@@ -405,8 +413,13 @@ def replica_lag_pressure(replica,
 
 
 def cluster_pressure(telemetry) -> Callable[[], float]:
-    """Per-shard health folded into admission: the cluster telemetry
-    plane is not ported (ROADMAP A11)."""
-    raise NotImplementedError(
-        "the cluster telemetry plane is not ported (ROADMAP A11)"
-    )
+    """Per-shard health folded into admission: ``telemetry`` is a
+    ``ClusterTelemetry``; its ``pressure()`` is worst-shard unhealth,
+    so overload or death on ANY replica set sheds writes at the driver
+    before queues back up behind a dying shard."""
+
+    def signal() -> float:
+        return telemetry.pressure()
+
+    signal.signal_name = "cluster"
+    return signal

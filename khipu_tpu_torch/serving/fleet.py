@@ -32,10 +32,7 @@ read rate), ``khipu_fleet_requests_total{route=}``,
 ``khipu_fleet_tokens_reanchored_total``, and
 ``khipu_replica_lag_blocks{replica=}`` for every fleet member.
 
-The port's copy of ``khipu_tpu.serving.fleet``. Health weights come
-from liveness only: the ``ClusterTelemetry`` whose shard health scores
-would weight the pick-2 is not ported (ROADMAP A11), so ``telemetry=``
-raises ``NotImplementedError``.
+The port's copy of ``khipu_tpu.serving.fleet``.
 """
 
 from __future__ import annotations
@@ -74,16 +71,15 @@ class FleetRouter:
     ):
         """``primary_server`` is the primary's ``JsonRpcServer`` (its
         admission plane applies to everything the router forwards).
-        Replicas weigh by liveness only (``telemetry``, the cluster's
-        health scores, is not ported: ROADMAP A11).
-        ``reorg_manager`` is the PRIMARY's: the router listens for
-        switches to learn fork ancestors for token re-anchoring."""
-        if telemetry is not None:
-            raise NotImplementedError(
-                "the cluster telemetry plane is not ported (ROADMAP A11)"
-            )
+        ``telemetry`` is an optional ``ClusterTelemetry`` whose
+        endpoints are replica names — its ``khipu_shard_health``
+        scores weight the pick-2; without one, routing degrades to
+        liveness-only. ``reorg_manager`` is the PRIMARY's: the router
+        listens for switches to learn fork ancestors for token
+        re-anchoring."""
         self.primary = primary_server
         self.replicas = list(replicas)
+        self.telemetry = telemetry
         self.chain_id = primary_server.service.config.blockchain.chain_id
         self._serving_cfg = primary_server.service.config.serving
         self._rng = random.Random(seed)
@@ -203,7 +199,13 @@ class FleetRouter:
     # --------------------------------------------------------- routing
 
     def _health(self, replica: ReplicaDriver) -> float:
-        return 1.0 if replica.alive() else 0.0
+        if not replica.alive():
+            return 0.0
+        if self.telemetry is not None:
+            score = self.telemetry.health_scores().get(replica.name)
+            if score is not None:
+                return score.score
+        return 1.0
 
     def _pick_replica(self) -> Optional[ReplicaDriver]:
         with self._lock:

@@ -45,7 +45,6 @@ def hash_planes(planes: torch.Tensor, nblocks: int, nwords_in: int,
     ``nwords_in == nblocks * 34`` for padded rows, fewer for unpadded
     rows of an exact-length class) into ``out`` int32[8, n], word-major.
     ``out`` may be a column slice of a larger buffer."""
-    global HASH_LAUNCHES
     _check_class(planes, nblocks, nwords_in)
     n = planes.shape[1]
     _check_planes("out", out, 8)
@@ -61,7 +60,7 @@ def hash_planes(planes: torch.Tensor, nblocks: int, nwords_in: int,
     )
     if rc:
         raise RuntimeError(f"K3 mirror hash launch failed: cudaError {rc}")
-    HASH_LAUNCHES += 1
+    build.count_launch(__name__, "HASH_LAUNCHES")
     return out
 
 
@@ -70,7 +69,6 @@ def verify_planes(planes: torch.Tensor, claimed: torch.Tensor, nblocks: int,
     """K4: the number of rows of ``planes`` whose digest differs from
     ``claimed`` (int32[8, n]), as an int32[1] tensor on the card; the
     caller reads it when it needs it."""
-    global VERIFY_LAUNCHES
     _check_class(planes, nblocks, nwords_in)
     n = planes.shape[1]
     _check_planes("claimed", claimed, 8)
@@ -87,5 +85,5 @@ def verify_planes(planes: torch.Tensor, claimed: torch.Tensor, nblocks: int,
     )
     if rc:
         raise RuntimeError(f"K4 mirror verify launch failed: cudaError {rc}")
-    VERIFY_LAUNCHES += 1
+    build.count_launch(__name__, "VERIFY_LAUNCHES")
     return count

@@ -6,8 +6,7 @@ engine behind the same DataSource SPI, selected purely by
 mode for concurrent readers. The native append-log engine remains the
 Kesque-role primary; this is the embedded-KV alternative the reference
 keeps for operational flexibility. The port's copy of
-``khipu_tpu.storage.sqlite_engine``, without the key enumeration that
-only the reference's live rebalance reads (``Storages.node_keys``).
+``khipu_tpu.storage.sqlite_engine``.
 """
 
 from __future__ import annotations
@@ -91,6 +90,15 @@ class _SqliteTable:
     def count(self) -> int:
         return self._conn().execute("SELECT COUNT(*) FROM kv").fetchone()[0]
 
+    def keys(self) -> list:
+        """All keys, sorted — the StreamNodeData iteration surface
+        (live rebalance); bytes sort == SQLite BLOB ordering."""
+        return [
+            row[0] for row in self._conn().execute(
+                "SELECT k FROM kv ORDER BY k"
+            )
+        ]
+
     def max_key8(self) -> int:
         row = self._conn().execute(
             "SELECT MAX(k) FROM kv WHERE LENGTH(k) = 8"
@@ -129,6 +137,9 @@ class SqliteKeyValueDataSource(KeyValueDataSource):
     @property
     def count(self) -> int:
         return self._table.count
+
+    def keys(self) -> list:
+        return self._table.keys()
 
     def stop(self) -> None:
         self._table.close()

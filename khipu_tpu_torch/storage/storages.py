@@ -158,6 +158,26 @@ class Storages:
                 return v
         return None
 
+    def node_keys(self) -> List[bytes]:
+        """Sorted distinct keys across the three content-addressed
+        node stores — the ``StreamNodeData`` iteration surface (live
+        rebalance, cluster/rebalance.py). Serves durably-landed nodes
+        only (the unconfirmed ring is by definition not yet part of
+        the committed state a rebalance moves). Engines whose sources
+        cannot enumerate raise, so a rebalance fails loudly instead of
+        silently moving nothing."""
+        out = set()
+        for s in self._node_storages:
+            keys = getattr(s.source, "keys", None)
+            if keys is None:
+                raise RuntimeError(
+                    f"{type(s.source).__name__} cannot enumerate node "
+                    "keys — live rebalance needs an enumerable node "
+                    "store (memory, sqlite or kesque engine)"
+                )
+            out.update(bytes(k) for k in keys())
+        return sorted(out)
+
     def switch_to_unconfirmed(self) -> None:
         for s in self._node_storages:
             s.switch_to_unconfirmed()

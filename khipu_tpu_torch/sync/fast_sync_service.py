@@ -72,10 +72,6 @@ class PeerFetchPool:
         log: Optional[Callable[[str], None]] = None,
         cluster=None,
     ):
-        if cluster is not None:
-            raise NotImplementedError(
-                "the sharded node-cache cluster is not ported (ROADMAP A11)"
-            )
         self.manager = manager
         self.per_request = nodes_per_request
         self.timeout = timeout
@@ -83,6 +79,11 @@ class PeerFetchPool:
         self.log = log or (lambda s: None)
         self.blacklisted = 0
         self._rr = 0  # rotating start so small fetches still spread
+        # sharded node-cache cluster: consulted before the peer pool —
+        # a shard read is one verified RPC vs. a devp2p round-trip, and
+        # the client's replica failover/breakers absorb dead shards
+        self.cluster = cluster
+        self.cluster_served = 0
 
     def _live_peers(self) -> List[Peer]:
         return [
@@ -96,6 +97,14 @@ class PeerFetchPool:
         its CONTENT hash (NodeData replies carry no correlation)."""
         results: Dict[bytes, bytes] = {}
         pending = list(hashes)
+        if self.cluster is not None and pending:
+            try:
+                got = self.cluster.fetch(pending)
+            except Exception:
+                got = {}
+            results.update(got)  # values verified by the client
+            self.cluster_served += len(got)
+            pending = [h for h in pending if h not in results]
         for _ in range(self.max_rounds):
             if not pending:
                 break

@@ -137,6 +137,9 @@ class WindowJournal:
         # (``Storages.flush_writes``); None for a bare journal
         self._barrier = barrier
         self._lock = threading.Lock()
+        # recovery passes run over this journal (``recover``): a bridge
+        # that tore a batch refuses more until this count moves
+        self.recoveries = 0
         # registry pull collector, replace-by-key: the newest journal
         # (tests build hundreds) owns the khipu_journal_depth sample
         REGISTRY.register_collector(
@@ -456,6 +459,7 @@ def recover(blockchain, log: Optional[Callable[[str], None]] = None,
             f"{storages.app_state.best_block_number}"
         )
     journal.prune()
+    journal.recoveries += 1
     report.best_after = storages.app_state.best_block_number
     for line in report.actions:
         emit(f"recover: {line}")

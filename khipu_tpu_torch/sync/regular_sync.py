@@ -116,10 +116,6 @@ class RegularSyncService:
         read_view=None,
         device=None,
     ):
-        if cluster is not None:
-            raise NotImplementedError(
-                "the sharded node-cache cluster is not ported (ROADMAP A11)"
-            )
         self.blockchain = blockchain
         self.config = config
         self.manager = manager
@@ -156,6 +152,12 @@ class RegularSyncService:
         # a device-path error from a pushed block's import on a reader
         # thread, raised by the next sync_once (never logged away)
         self._push_error: Optional[BaseException] = None
+        # sharded node-cache cluster (cluster/client.py): when set, the
+        # heal path asks the replica shards BEFORE burning a peer
+        # round-trip — the DistributedNodeStorage read the reference
+        # does first (SURVEY §5.3)
+        self.cluster = cluster
+        self.cluster_healed = 0
 
     def _on_device(self):
         """The driver's card as this thread's current device: a peer's
@@ -318,8 +320,25 @@ class RegularSyncService:
         """Fetch one trie node by hash and admit it (content-address
         verified) into the node stores — the read-through self-heal the
         kesque DistributedNodeStorage role performs (storage/remote.py),
-        wired into the live import loop."""
-        with span("sync.heal", node=node_hash):
+        wired into the live import loop. The sharded cluster (replica
+        failover + breakers, values pre-verified by the client) is
+        consulted first; the announcing peer is the fallback when no
+        shard holds the node."""
+        with span("sync.heal", node=node_hash) as heal_sp:
+            if self.cluster is not None:
+                try:
+                    got = self.cluster.fetch([node_hash])
+                except Exception:
+                    got = {}
+                blob = got.get(node_hash)
+                if blob is not None and keccak256(blob) == node_hash:
+                    s = self.blockchain.storages
+                    s.account_node_storage.put(node_hash, blob)
+                    s.storage_node_storage.put(node_hash, blob)
+                    self.healed_nodes += 1
+                    self.cluster_healed += 1
+                    heal_sp.set_tag("source", "cluster")
+                    return
             body = peer.request(
                 ETH_OFFSET + GET_NODE_DATA,
                 [node_hash],
@@ -332,6 +351,7 @@ class RegularSyncService:
                     s.account_node_storage.put(node_hash, blob)
                     s.storage_node_storage.put(node_hash, blob)
                     self.healed_nodes += 1
+                    heal_sp.set_tag("source", "peer")
                     return
             raise PeerError(
                 f"peer could not heal node {node_hash.hex()[:16]}"

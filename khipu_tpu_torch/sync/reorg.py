@@ -124,6 +124,12 @@ class ReorgManager:
                  self.recycled_txs),
             ]
 
+    def watch_source(self) -> int:
+        """Cumulative switch count — the watchdog's ``reorg_storm``
+        detector samples this (observability/telemetry.py)."""
+        with self._lock:
+            return self.switches
+
     def add_listener(self, fn: Callable) -> None:
         """Register ``fn(ancestor_number, removed_hits)`` to run at
         finalize (after the chain is switched, before control returns

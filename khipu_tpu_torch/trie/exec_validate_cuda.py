@@ -22,7 +22,6 @@ def validate_rows(rows: torch.Tensor) -> torch.Tensor:
     """K6: u8[n] mask, 1 where row ``r`` of ``rows`` (int32[n, 20] on
     the card, contiguous, 16-byte aligned) has the transaction's nonce
     equal to the account's and a balance covering the upfront cost."""
-    global LAUNCHES
     if not rows.is_cuda:
         raise ValueError("K6 takes CUDA tensors only")
     if rows.dtype != torch.int32 or rows.dim() != 2 or (
@@ -41,5 +40,5 @@ def validate_rows(rows: torch.Tensor) -> torch.Tensor:
                                  stream)
     if rc:
         raise RuntimeError(f"K6 exec-validate kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
+    build.count_launch(__name__, "LAUNCHES")
     return ok

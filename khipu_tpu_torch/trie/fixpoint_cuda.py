@@ -51,7 +51,6 @@ def resolve_levels(encs: Sequence[torch.Tensor], bases: Sequence[int],
     1], ``toff``/``tchild`` i32[n]: the level plan of ``fused.pack``,
     which builds and range-checks them; the kernel does not check them
     again. ``widest`` is the largest level's row count (grid size)."""
-    global LAUNCHES
     if not digests.is_cuda:
         raise ValueError("K5 takes CUDA tensors only")
     dev = digests.device
@@ -97,7 +96,7 @@ def resolve_levels(encs: Sequence[torch.Tensor], bases: Sequence[int],
     )
     if rc:
         raise RuntimeError(f"K5 fixpoint kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
+    build.count_launch(__name__, "LAUNCHES")
 
 
 def occupancy(device=None) -> Tuple[int, int]:

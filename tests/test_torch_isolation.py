@@ -75,7 +75,11 @@ want = {"khipu_tpu_torch.consensus", "khipu_tpu_torch.consensus.ethash",
         "khipu_tpu_torch.serving.loadgen", "khipu_tpu_torch.serving.router",
         "khipu_tpu_torch.serving.replica", "khipu_tpu_torch.serving.fleet",
         "khipu_tpu_torch.observability.telemetry",
-        "khipu_tpu_torch.service_board", "khipu_tpu_torch.__main__"}
+        "khipu_tpu_torch.service_board", "khipu_tpu_torch.__main__",
+        "khipu_tpu_torch.bridge", "khipu_tpu_torch.cluster",
+        "khipu_tpu_torch.cluster.ring", "khipu_tpu_torch.cluster.client",
+        "khipu_tpu_torch.cluster.health",
+        "khipu_tpu_torch.cluster.rebalance"}
 print(len(names), sorted(want - set(names)) + bad)
 """
 
@@ -334,7 +338,7 @@ def test_native_sources_include_nothing_of_the_reference():
 
 def test_port_never_imports_grpc():
     """The machine with the card has no gRPC package: no module of the
-    port imports it (the bridge waits for ROADMAP A11)."""
+    port imports it (the port's bridge speaks HTTP)."""
     import re
 
     root = os.path.join(REPO, "khipu_tpu_torch")

@@ -6,15 +6,23 @@ view's wiring into live sync, against the JAX package's.
   directory in each package: equal recovery reports and tips, and the
   resume lands on the chain.
 * The board wires the serving plane into the RPC service and the
-  regular-sync service (read view, reorg listener); every entry point
-  of the bridge, the cluster and its telemetry raises
-  ``NotImplementedError`` naming ROADMAP A11.
+  regular-sync service (read view, reorg listener). Every entry point
+  of the bridge, the cluster and its telemetry is driven on loopback
+  port bridges: ``start_bridge`` executes the chain over the bridge,
+  ``start_cluster`` reads a state through three shards with one
+  stopped, ``join_shard`` / ``retire_shard`` move the ring an epoch
+  each, ``start_telemetry`` scrapes the shards; ``EthService(cluster=,
+  telemetry=)``, ``ServingPlane.build(telemetry=)``,
+  ``FleetRouter(telemetry=)``, the two pressure signals and the sync
+  services' ``cluster=`` read them.
 * ``RegularSyncService(read_view=)``: a windowed batch import publishes
   and retires the same blocks as the reference's; in the port an error
   at ``fused.dispatch`` escapes the import with the overlay invalidated.
 * ``python -m khipu_tpu_torch --no-bridge --no-network --rpc-port 0
   --device cpu`` boots, answers, and stops cleanly on SIGTERM; without
-  ``--no-bridge`` it stops with the bridge's ``NotImplementedError``.
+  ``--no-bridge`` its bridge answers ``BestBlock`` and it stops cleanly,
+  and its ``ExecuteBlocks`` commits through the windowed device commit
+  (the plain versions at ``--device cpu``).
 
 Chains: ``tests/test_torch_rpc.py``'s JAX-built ERC-20 chain.
 """
@@ -29,6 +37,7 @@ import urllib.request
 
 import pytest
 
+from tests.test_torch_bridge import _StoresOnly
 from tests.test_torch_chaos import _namespace, kill
 from tests.test_torch_rpc import chain_wire, genesis_alloc, port_node
 from tests.test_torch_serving import _blocks, _config, _node, _pkg, record
@@ -136,44 +145,353 @@ def test_board_wires_the_serving_plane():
         board.shutdown()
 
 
-def _a11_calls():
+class Shards:
+    """Port bridges on loopback holding the base chain's state (every
+    node of the port's own replay), stopped by ``close``."""
+
+    def __init__(self, n=3, nodes=None):
+        from khipu_tpu_torch.bridge import BridgeServer
+        from khipu_tpu_torch.config import KhipuConfig
+        from khipu_tpu_torch.storage.storages import Storages
+
+        self._make = lambda: BridgeServer(
+            _StoresOnly(Storages()), KhipuConfig(), device="cpu")
+        self.servers, self.endpoints = [], []
+        try:
+            for _ in range(n):
+                self.add(nodes)
+        except BaseException:
+            self.close()
+            raise
+
+    def add(self, nodes=None):
+        srv = self._make()
+        st = srv.blockchain.storages
+        st.account_node_storage.update([], dict(nodes or {}))
+        self.endpoints.append(f"127.0.0.1:{srv.start(port=0)}")
+        self.servers.append(srv)
+        return self.endpoints[-1]
+
+    def close(self):
+        for srv in self.servers:
+            srv.stop()
+
+
+def _base_state():
+    """The port node after the base chain: its nodes and head root."""
+    base, _ = chain_wire()
+    bc = port_node(wire=base)
+    st = bc.storages
+    nodes = {}
+    for s in (st.account_node_storage, st.storage_node_storage,
+              st.evmcode_storage):
+        nodes.update(s.source._map)
+    return bc, nodes, bc.get_header_by_number(len(base)).state_root
+
+
+def _cluster_config(endpoints, **tel):
+    from khipu_tpu_torch.config import ClusterConfig, TelemetryConfig
+
+    return dataclasses.replace(
+        _config("port", 1),
+        cluster=ClusterConfig(endpoints=tuple(endpoints), max_retries=1,
+                              backoff_base=0.001, rpc_deadline=10.0,
+                              probe_interval=0.2),
+        telemetry=TelemetryConfig(enabled=True, scrape_interval=0.5,
+                                  **tel),
+    )
+
+
+def _walk(storage, root, ref_bc):
+    """Every account of the base chain read through ``storage`` equals
+    the port node's own read."""
+    from khipu_tpu_torch.domain.account import address_key
+    from khipu_tpu_torch.trie.mpt import MerklePatriciaTrie
+
+    from tests.test_torch_rpc import holder, token_address
+
+    trie = MerklePatriciaTrie(storage, root_hash=root)
+    ref = MerklePatriciaTrie(ref_bc.storages.account_node_storage,
+                             root_hash=root)
+    addrs = list(genesis_alloc()) + [holder(i) for i in range(12)] + [
+        token_address()]
+    for a in addrs:
+        assert trie.get(address_key(a)) == ref.get(address_key(a))
+    return len(addrs)
+
+
+def test_board_bridge_executes_and_answers():
+    """``start_bridge``: blocks over the board's bridge commit on the
+    board's device, and its reads answer from the board's chain."""
+    from khipu_tpu_torch.bridge import BridgeClient
+
+    base, _ = chain_wire()
+    b = _board_pkg("port")
+    board = b["board"](_config("port", 3),
+                       b["GenesisSpec"](alloc=genesis_alloc()))
+    cl = None
+    try:
+        port = board.start_bridge(port=0)
+        assert board.bridge.device == board.device
+        cl = BridgeClient(f"127.0.0.1:{port}", deadline=30.0)
+        out = cl.execute_blocks(_blocks("port", base))
+        assert [n for n, _ in out] == list(range(1, len(base) + 1))
+        assert cl.best_block() == (len(base), _blocks("port", base)[-1].hash)
+        root = cl.get_state_root(len(base))
+        assert cl.get_node_data([root]) and root == out[-1][1]
+    finally:
+        if cl is not None:
+            cl.close()
+        board.shutdown()
+
+
+def test_board_cluster_reads_through_and_survives_a_dead_shard():
+    """``start_cluster``: the node stores read through three shards (one
+    stopped), and the health prober drops the dead one."""
+    ref_bc, nodes, root = _base_state()
+    shards = Shards(3, nodes)
+    board = None
+    try:
+        shards.servers[2].stop()
+        b = _board_pkg("port")
+        board = b["board"](_cluster_config(shards.endpoints), None)
+        cluster = board.start_cluster(probe=False)
+        assert board.cluster is cluster
+        assert _walk(board.storages.account_node_storage, root, ref_bc)
+        snap = cluster.metrics_snapshot()
+        assert snap["unreachable"] == 0
+        from khipu_tpu_torch.cluster import HealthMonitor
+
+        mon = HealthMonitor(cluster, down_after=2, up_after=1)
+        mon.probe_once()
+        mon.probe_once()
+        assert shards.endpoints[2] not in cluster.ring.members
+    finally:
+        if board is not None:
+            board.shutdown()
+        shards.close()
+
+
+def test_board_join_and_retire_shard():
+    """``join_shard`` / ``retire_shard``: the ring's epoch rises by one
+    at each, every node still fetches bit-exact, and the joiner serves
+    its share to a direct call."""
+    from khipu_tpu_torch.bridge import BridgeClient
+
+    _, nodes, _ = _base_state()
+    shards = Shards(3)
+    board = None
+    try:
+        b = _board_pkg("port")
+        board = b["board"](_cluster_config(shards.endpoints), None)
+        cluster = board.start_cluster(probe=False)
+        cluster.replicate(nodes)
+        e0 = cluster.ring.epoch
+        joiner = shards.add()
+        assert board.join_shard(joiner) > 0
+        assert cluster.ring.epoch == e0 + 1 and joiner in cluster.ring.members
+        assert board.retire_shard(shards.endpoints[0]) > 0
+        assert cluster.ring.epoch == e0 + 2
+        assert shards.endpoints[0] not in cluster.ring.members
+        assert cluster.fetch(list(nodes)) == nodes
+        share = [k for k in nodes if joiner in cluster.ring.replicas_for(k)]
+        direct = BridgeClient(joiner, deadline=10.0)
+        try:
+            assert direct.get_node_data(share) == {k: nodes[k] for k in share}
+        finally:
+            direct.close()
+        assert board.rebalancer.completed == 2
+        assert cluster.metrics_snapshot()["rebalance"]["completed"] == 2
+    finally:
+        if board is not None:
+            board.shutdown()
+        shards.close()
+
+
+def test_board_telemetry_scrapes_the_shards():
+    """``start_telemetry`` after ``start_cluster`` and ``start_serving``:
+    the federation scrapes every shard, the serving plane gains the
+    cluster signal, the RPC service serves the cluster report, and a
+    stopped shard scores below ``health_threshold``."""
+    from khipu_tpu_torch.config import KhipuConfig
+
+    shards = Shards(2)
+    board = None
+    try:
+        b = _board_pkg("port")
+        board = b["board"](_cluster_config(shards.endpoints), None)
+        board.start_cluster(probe=False)
+        plane = board.start_serving()
+        tel = board.start_telemetry()
+        assert board.telemetry is tel
+        assert "cluster" in [getattr(s, "signal_name", None)
+                             for s in plane.admission.signals]
+        assert tel.scrape_once() == 2
+        board.start_rpc(port=0)
+        report = board._rpc_server.service.khipu_cluster_report()
+        assert set(report["shards"]) == set(shards.endpoints)
+        assert report.keys() == tel.report().keys()
+        shards.servers[1].stop()
+        tel.scrape_once()
+        scores = tel.health_scores()
+        assert scores[shards.endpoints[1]].score < (
+            board.config.telemetry.health_threshold)
+        assert "khipu_" in board._rpc_server.service.khipu_cluster_metrics_text()
+        assert b["board"](KhipuConfig(), None).start_telemetry() is None
+    finally:
+        if board is not None:
+            board.shutdown()
+        shards.close()
+
+
+def test_eth_service_serves_the_cluster():
+    """``EthService(cluster=, telemetry=)``: ``khipu_metrics`` carries the
+    client's ``cluster`` block and the cluster RPCs answer from the
+    telemetry plane."""
+    from khipu_tpu_torch.cluster import ShardedNodeClient
     from khipu_tpu_torch.config import KhipuConfig
     from khipu_tpu_torch.jsonrpc import EthService
+    from khipu_tpu_torch.observability.registry import MetricsRegistry
+    from khipu_tpu_torch.observability.telemetry import ClusterTelemetry
+
+    shards = Shards(2)
+    cl = None
+    try:
+        cl = ShardedNodeClient(shards.endpoints, rpc_deadline=10.0)
+        tel = ClusterTelemetry(shards.endpoints, cluster=cl,
+                               registry=MetricsRegistry())
+        tel.scrape_once()
+        svc = EthService(port_node(), KhipuConfig(), cluster=cl,
+                         telemetry=tel)
+        metrics = svc.khipu_metrics()
+        assert set(metrics["cluster"]["shards"]) == set(shards.endpoints)
+        report = svc.khipu_cluster_report()
+        assert set(report["shards"]) == set(shards.endpoints)
+        assert report.keys() == tel.report().keys()
+        assert svc.khipu_cluster_metrics_text() == tel.cluster_text()
+    finally:
+        if cl is not None:
+            cl.close()
+        shards.close()
+
+
+class _Replica:
+    def __init__(self, name):
+        self.name = name
+
+    def alive(self):
+        return True
+
+
+class _MetricsShard:
+    def __init__(self, fail):
+        from khipu_tpu_torch.observability.registry import MetricsRegistry
+        from khipu_tpu_torch.observability.telemetry import (
+            decode_metrics,
+            encode_metrics,
+        )
+
+        self.fail = fail
+        self._get = lambda: decode_metrics(encode_metrics(MetricsRegistry()))
+
+    def get_metrics(self):
+        if self.fail:
+            raise ConnectionError("down")
+        return self._get()
+
+    def close(self):
+        pass
+
+
+def _replica_telemetry():
+    from khipu_tpu_torch.observability.registry import MetricsRegistry
+    from khipu_tpu_torch.observability.telemetry import ClusterTelemetry
+
+    shards = {"r1": _MetricsShard(False), "r2": _MetricsShard(True)}
+    tel = ClusterTelemetry(list(shards), client_factory=shards.__getitem__,
+                           registry=MetricsRegistry())
+    tel.scrape_once()
+    return tel
+
+
+def test_fleet_router_weighs_replicas_by_health():
+    """``FleetRouter(telemetry=)``: a replica whose scrape fails weighs
+    0 though it is alive; a healthy one weighs its score."""
+    from khipu_tpu_torch.config import KhipuConfig
+    from khipu_tpu_torch.jsonrpc import EthService, JsonRpcServer
+    from khipu_tpu_torch.serving.fleet import FleetRouter
+
+    tel = _replica_telemetry()
+    primary = JsonRpcServer(EthService(port_node(), KhipuConfig()),
+                            "127.0.0.1", 0)
+    router = FleetRouter(primary, [_Replica("r1"), _Replica("r2")],
+                         telemetry=tel)
+    assert router._health(router.replicas[0]) == tel.health_scores()[
+        "r1"].score == 1.0
+    assert router._health(router.replicas[1]) == 0.0
+
+
+def test_serving_plane_and_pressure_signals():
+    """``ServingPlane.build(telemetry=)``, ``cluster_pressure`` and
+    ``rebalance_pressure``: the signals read the federation's worst
+    shard and the rebalancer's transition pressure."""
+    from khipu_tpu_torch.cluster import Rebalancer, ShardedNodeClient
+    from khipu_tpu_torch.config import KhipuConfig
     from khipu_tpu_torch.serving import (
         ServingPlane,
         cluster_pressure,
         rebalance_pressure,
     )
-    from khipu_tpu_torch.serving.fleet import FleetRouter
 
-    def board():
-        b = _board_pkg("port")
-        return b["board"](KhipuConfig(), None)
-
-    def eth(**kw):
-        return EthService(port_node(), KhipuConfig(), **kw)
-
-    return {
-        "start_bridge": lambda: board().start_bridge(port=0),
-        "start_cluster": lambda: board().start_cluster(),
-        "start_telemetry": lambda: board().start_telemetry(),
-        "join_shard": lambda: board().join_shard("127.0.0.1:1"),
-        "retire_shard": lambda: board().retire_shard("127.0.0.1:1"),
-        "eth_cluster": lambda: eth(cluster=object()),
-        "eth_telemetry": lambda: eth(telemetry=object()),
-        "plane_telemetry": lambda: ServingPlane.build(
-            port_node(), KhipuConfig(), telemetry=object()),
-        "fleet_telemetry": lambda: FleetRouter(None, [],
-                                               telemetry=object()),
-        "rebalance_pressure": lambda: rebalance_pressure(object()),
-        "cluster_pressure": lambda: cluster_pressure(object()),
-    }
+    tel = _replica_telemetry()
+    plane = ServingPlane.build(port_node(), KhipuConfig(), telemetry=tel)
+    names = [getattr(s, "signal_name", None) for s in plane.admission.signals]
+    assert "cluster" in names
+    sig = cluster_pressure(tel)
+    assert sig.signal_name == "cluster" and sig() == tel.pressure() == 1.0
+    rb = Rebalancer(ShardedNodeClient(["a:1"],
+                                      channel_factory=lambda ep: None),
+                    pressure=0.88)
+    sig = rebalance_pressure(rb)
+    assert sig.signal_name == "rebalance" and sig() == 0.0  # idle
 
 
-@pytest.mark.parametrize("entry", sorted(_a11_calls()))
-def test_a11_entry_points_raise(entry):
-    with pytest.raises(NotImplementedError, match="A11"):
-        _a11_calls()[entry]()
+def test_sync_services_ask_the_cluster():
+    """The ``cluster=`` argument of ``RegularSyncService`` (the heal asks
+    the shards first), ``FastSyncService`` and ``PeerFetchPool``."""
+    from khipu_tpu_torch.cluster import ShardedNodeClient
+    from khipu_tpu_torch.sync.fast_sync_service import (
+        FastSyncService,
+        PeerFetchPool,
+    )
+    from khipu_tpu_torch.sync.regular_sync import RegularSyncService
+
+    _, nodes, root = _base_state()
+    shards = Shards(2, nodes)
+    cl = None
+    try:
+        cl = ShardedNodeClient(shards.endpoints, rpc_deadline=10.0)
+        cfg = _config("port", 1)
+        bc = port_node(cfg)
+        sync = RegularSyncService(bc, cfg, None, cluster=cl, device="cpu")
+        sync._heal_missing_node(None, root)
+        assert sync.cluster_healed == 1
+        assert bc.storages.account_node_storage.get(root) == nodes[root]
+        fast = FastSyncService(bc, cfg, _NoPeers(), cluster=cl,
+                               device="cpu")
+        keys = list(nodes)[:50]
+        assert fast.pool.fetch_nodes(keys) == {k: nodes[k] for k in keys}
+        assert fast.pool.cluster_served == 50
+        pool = PeerFetchPool(_NoPeers(), cluster=cl)
+        assert pool.fetch_nodes(keys[:5]) == {k: nodes[k] for k in keys[:5]}
+    finally:
+        if cl is not None:
+            cl.close()
+        shards.close()
+
+
+class _NoPeers:
+    peers = []
 
 
 def test_regular_sync_import_publishes_into_the_read_view():
@@ -258,14 +576,78 @@ def test_cli_boots_answers_and_stops_on_sigterm():
     assert out.strip().endswith("shut down cleanly")
 
 
-def test_cli_default_bridge_raises_until_ported():
-    proc = _cli()
+def test_cli_default_start_serves_its_bridge():
+    """Without ``--no-bridge`` the node starts its bridge: it answers
+    ``BestBlock`` and the node shuts down cleanly on SIGTERM."""
+    from khipu_tpu_torch.bridge import BridgeClient
+
+    proc = _cli("--bridge-port", "0")
+    cl = None
     try:
-        out, err = proc.communicate(timeout=60)
+        lines = []
+        for _ in range(10):
+            line = proc.stdout.readline()
+            lines.append(line)
+            if line.startswith("bridge on "):
+                break
+        target = lines[-1].split(" on ", 1)[1].strip()
+        cl = BridgeClient(target, deadline=10.0)
+        number, head = cl.best_block()
+        assert number == 0 and len(head) == 32
+        assert cl.ping(b"up") == b"up"
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=30)
     finally:
+        if cl is not None:
+            cl.close()
         if proc.poll() is None:
             proc.kill()
             proc.communicate(timeout=10)
-    assert proc.returncode != 0
-    assert "NotImplementedError" in err and "A11" in err
-    assert "shut down cleanly" in out
+    assert proc.returncode == 0, err
+    assert out.strip().endswith("shut down cleanly")
+
+
+def test_cli_bridge_commits_windowed_on_its_device(monkeypatch, capsys):
+    """The CLI's default bridge commits on ``--device`` through the
+    windowed device commit: a batch of 16 blocks is two windows of 8,
+    each one K5 (the plain fixpoint on the CPU) and no host window, and
+    every answered root is its header's."""
+    from khipu_tpu_torch import __main__ as cli
+    from khipu_tpu_torch.bridge import BridgeClient
+    from khipu_tpu_torch.domain.blockchain import Blockchain, GenesisSpec
+    from khipu_tpu_torch.ledger.window import WINDOW_GAUGES
+    from khipu_tpu_torch.storage.storages import Storages
+    from khipu_tpu_torch.sync.chain_builder import ChainBuilder
+    from khipu_tpu_torch.trie import fused
+
+    resolves = []
+    resolve = fused.resolve_levels
+
+    def counted(*a, **k):
+        resolves.append(1)
+        return resolve(*a, **k)
+
+    monkeypatch.setattr(fused, "resolve_levels", counted)
+    board = cli.start_node(cli.parse_args(
+        ["--device", "cpu", "--no-rpc", "--no-network", "--bridge-port",
+         "0"]))
+    cl = None
+    try:
+        assert board.bridge.device == board.device
+        assert board.config.sync.commit_window_blocks == 8
+        port = capsys.readouterr().out.split("bridge on ")[1].split(":")[1]
+        builder = ChainBuilder(Blockchain(Storages(), board.config),
+                               board.config, GenesisSpec())
+        blocks = [builder.add_block(coinbase=bytes([0xC0 + i]) * 20)
+                  for i in range(16)]
+        before = dict(WINDOW_GAUGES)
+        cl = BridgeClient(f"127.0.0.1:{int(port)}", deadline=30.0)
+        out = cl.execute_blocks(blocks)
+        assert out == [(b.number, b.header.state_root) for b in blocks]
+        assert len(resolves) == 2
+        assert WINDOW_GAUGES["device_windows"] - before["device_windows"] == 2
+        assert WINDOW_GAUGES["host_windows"] == before["host_windows"]
+    finally:
+        if cl is not None:
+            cl.close()
+        board.shutdown()
