@@ -46,7 +46,9 @@ entry points a user calls:
   7. launch counts of phases 4-6 (K5 three times, K1r never), K5 timed
      at the 100k trie's and the window's shapes beside its plain
      version and K1r's row mode run over every row once per level (the
-     design K5 replaced)
+     design K5 replaced); K5 also held against its plain version at the
+     sharded fixpoint's per-level shape (each level in two shares, then
+     whole) and timed a launch a level
   8. mirror_verify (BASELINE config #5 on one card): 10,485,760 x 576 B
      nodes generated on the card, claims by K1f, ``admit_packed(...,
      exact=True)``, ``verify()`` == 0 and exactly 1 for each negative
@@ -76,7 +78,8 @@ entry points a user calls:
  13. replay_erc20: a deploy block, then 16 blocks of 200 ERC-20
      ``transfer(to, amount)`` calls (200 senders, 256 holders), built and
      replayed as in 12; K1r then held against its plain version in both
-     modes on every batch the replay's trie commits hashed
+     modes on every 12th batch the replay's trie commits hashed, and
+     timed over all of them
 
  13b. replay_prebyz_optimistic: 16 blocks of 50 contended transfers
      (a fifth paying 4 hot recipients) under a schedule with every fork
@@ -174,13 +177,15 @@ Then crash recovery, the chain switch and the seal check:
      epoch's dataset size); nonce + 1 and one flipped mix byte must be
      refused
  21. recover_erc20_w8: 15's chain at window 8 with
-     ``degrade_on_collector_death=False``, once per seam of its path
-     (the five stage seams, ``collector.pack``, ``collector.spill``,
-     ``collector.commit``, ``fused.dispatch``, ``fused.collect``,
-     ``storage.node.put``, ``storage.block.put``), a ``die`` rule killing
-     the second window; a fresh driver's ``recover()`` then settles the
+     ``degrade_on_collector_death=False``, once per recovery branch of
+     its path (``collector.seal``, ``fused.collect``,
+     ``storage.block.put``, ``collector.save``, ``collector.commit``;
+     the CPU tests kill every seam), a ``die`` rule killing the second
+     window; a fresh driver's ``recover()`` then settles the
      journal (nothing pending, best on a window's top at or below the
-     dead window's) and the replay resumes on the card from best + 1:
+     dead window's; a torn block, whole blocks or a missing commit mark
+     repaired as ``RECOVER_SEAMS`` expects) and the replay resumes on
+     the card from best + 1:
      roots, receipts and reachable nodes equal 15's run, mirror verify
      0, K5 = the resumed replay's device windows, 0 host windows. One
      more run at the default degrade setting finishes with the same gates
@@ -278,14 +283,35 @@ Then the bridge and the sharded node-cache cluster:
      threshold) and a merged Chrome trace under ``chiprun_out/`` (every
      linked ``bridge.serve.*`` inside its ``bridge.call``)
 
+Then the multi-card path:
+
+ 31. parallel_mesh (``parallel_mesh_phase``): ``torchrun --standalone
+     -m khipu_tpu_torch.parallel`` as a subprocess, so this process's
+     context carries no process group: world 1 over NCCL at full width
+     (BASELINE #5's 10,485,760 x 576 B rows: ``keccak256_fixed_sharded``,
+     ``hash_level_all_gather`` equal to the one-card K1f,
+     ``snapshot_verify_sharded`` 0 and 1 with a byte flipped; #3's
+     100,000 accounts through ``bulk_build(hasher=sharded_hasher(mesh))``
+     equal to the one-card ``bulk_build(fused=True)``;
+     ``fused_resolve_sharded`` on the dry run's session, the bulk's
+     placeholder DAG and a 16 x 400 window equal to ``fused_resolve``),
+     then world 2 as two gloo ranks sharing the card (1,048,576 rows,
+     10,000 accounts, the same window): the rows and the window equal
+     to world 1's, and K5 once a level at world 1. The dry run's own
+     gates, on every rank (``check_records``): every rank's results
+     equal, K1f once a sharded hash a rank, K1r once a hasher call, K5
+     once a level a rank's share reaches, one all_gather a hash, a
+     hasher call and a level, one all_reduce a verify
+
 After phases 9 and 10, K3 and K4 are held against their plain versions
 on every class of that phase's mirror, whole (the padded generic
 classes the paths gave them), with the negative controls in each class.
 
 Launch counts are zeroed just before each driven path (4-6, 8, 9, 10,
 each genesis load and replay of 11-19 and 24, and each killed run,
-resume, mirror verify and switch of 21-23 and 25, and 28-30) and read
-just after it; 26 and 27 run on the host and launch nothing. Every comparison is exact (bytes). Each phase
+resume, mirror verify and switch of 21-23 and 25, and 28-30; 31's ranks
+zero their own before each step and report them) and read just after
+it; 26 and 27 run on the host and launch nothing. Every comparison is exact (bytes). Each phase
 prints one JSON line; the first line is the card's name and power limit from nvidia-smi, the line
 before the last lists the kernels, and the last line is the result. Any
 failure exits non-zero before the result line; without a card the
@@ -300,6 +326,7 @@ import gc
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -339,6 +366,10 @@ SPONGE_OPS_PER_BLOCK = 180 * 24 + 34
 # assumed Hopper ALU latency, not measured here), at 1.98 GHz.
 PERM_CHAIN_S = 24 * 7 * 4 / 1.98e9
 K1F_EDGES = (0, 1, 20, 32, 135, 136, 137, 271, 272)
+# k1r_replay_batches holds K1r against its plain version on every 12th
+# of the ERC-20 commits' batches (15 of 180), cut from all of them to
+# pay for parallel_mesh; every batch is still timed
+K1R_HOLD_EVERY = 12
 
 
 _T0 = time.perf_counter()
@@ -421,6 +452,20 @@ def cuda_ms_median(torch, fn, reps: int, warmup: bool = True) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[len(times) // 2]
+
+
+def timed_once(torch, fn) -> tuple:
+    """(``fn()``, its milliseconds) from one run between CUDA events, no
+    warm-up: the plain versions whose result is compared anyway and whose
+    further runs would be this script's cost."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def sponge_bound_ms(n_rows: int, nblocks: int, bytes_moved: int) -> tuple:
@@ -905,20 +950,26 @@ def replay_phases(args, torch, dev, launches, packed, hold_ragged) -> tuple:
                                "seconds": native.seconds})
     same_chain(erc20, oracle, len(blocks), "replay_erc20_python_vm")
     del erc20, oracle
-    # K1r vs its plain version, both modes, on the commits' batches
-    recorded, k1r_err, packs = record_commits(replay_cfg, spec, blocks), 0, []
-    for i, msgs in enumerate(recorded):
-        blob, offsets, lengths = packed(msgs)
+    # K1r vs its plain version, both modes, on every K1R_HOLD_EVERY-th
+    # batch of the commits (the plain version's runs are this phase's
+    # cost), and K1r timed back to back over every batch
+    recorded, k1r_err = record_commits(replay_cfg, spec, blocks), 0
+    packs = [packed(msgs) for msgs in recorded]
+    held = range(0, len(recorded), K1R_HOLD_EVERY)
+    for i in held:
+        msgs = recorded[i]
         k1r_err = max(k1r_err, hold_ragged(
-            blob, offsets, lengths, f"replay_erc20 batch {i}",
+            *packs[i], f"replay_erc20 batch {i}",
             {0: msgs[0], len(msgs) - 1: msgs[-1]}))
-        packs.append((blob, offsets, lengths))
     rows = [len(m) for m in recorded]
     nbs = [len(m) // 136 + 1 for msgs in recorded for m in msgs]
     back_to_back_ms = cuda_ms(torch, lambda: [
         keccak_cuda.absorb_ragged(*p) for p in packs], 5)
-    plain_all_ms = cuda_ms(torch, lambda: [keccak_torch.absorb_ragged(
-        b, torch.from_numpy(o), torch.from_numpy(ln)) for b, o, ln in packs], 1)
+    held_ms = cuda_ms(torch, lambda: [
+        keccak_cuda.absorb_ragged(*packs[i]) for i in held], 5)
+    _, plain_held_ms = timed_once(torch, lambda: [keccak_torch.absorb_ragged(
+        b, torch.from_numpy(o), torch.from_numpy(ln))
+        for b, o, ln in (packs[i] for i in held)])
     ops_s = sum(nbs) * SPONGE_OPS_PER_BLOCK / H100_INT32_OPS_PER_S
     bytes_s = sum(p[0].numel() + 40 * len(p[1]) for p in packs) \
         / H100_BYTES_PER_S
@@ -926,8 +977,9 @@ def replay_phases(args, torch, dev, launches, packed, hold_ragged) -> tuple:
           "rows_min": min(rows), "rows_median": sorted(rows)[len(rows) // 2],
           "rows_max": max(rows), "rate_blocks": sum(nbs),
           "modes": ["row", "column"], "max_abs_err": k1r_err,
-          "all_batches_call_ms": back_to_back_ms,
-          "all_batches_plain_ms": plain_all_ms,
+          "held_batches": len(held), "all_batches_call_ms": back_to_back_ms,
+          "held_batches_call_ms": held_ms,
+          "held_batches_plain_ms": plain_held_ms,
           "all_batches_bound_ms": max(ops_s, bytes_s) * 1e3,
           "bound_by": "operations" if ops_s >= bytes_s else "bytes"})
 
@@ -978,16 +1030,14 @@ def k5_at_window(torch, dev, fused, to_resolve, prefix, ext_np, ext_pos,
             plan.d_tchild, plan.widest)
 
     k5()
-    plain_g = fused.resolve_levels_plain(plain, total, ext, plan)
-    torch.cuda.synchronize()
+    plain_g, plain_ms = timed_once(torch, lambda: fused.resolve_levels_plain(
+        plain, total, ext, plan))
     err = max([int((digests.int() - plain_g.int()).abs().max())]
               + [int((c.enc.int() - p.enc.int()).abs().max())
                  for c, p in zip(classes, plain)])
     check(err == 0, "K5 != plain at a replay window's shape")
     ms = cuda_ms(torch, k5, reps)
     check(torch.equal(digests, plain_g), "K5 relaunch changed a window")
-    plain_ms = cuda_ms(torch, lambda: fused.resolve_levels_plain(
-        plain, total, ext, plan), 2)
     row_blocks = sum(c.nrows * c.nb for c in classes)
     enc_bytes = sum(c.enc.numel() for c in classes)
     ops_ms = row_blocks * SPONGE_OPS_PER_BLOCK / H100_INT32_OPS_PER_S * 1e3
@@ -1840,16 +1890,28 @@ def ethash_phase() -> dict:
 # hits of each seam in the first window of the ERC-20 chain at window 8
 # (a deploy block and 7 transfer blocks), so that ``after`` kills the
 # second window: one a window for the stage and fused seams, one a block
-# at collector.save (after 11: block 12 saved, 13-16 not), 3 node puts
-# in window 1 (account and storage spills, the token's code) and 4 block
+# at collector.save (after 11: block 12 saved, 13-16 not) and 4 block
 # puts a block (header, body, receipts, total difficulty: after 33 dies
-# on block 9's body)
-RECOVER_SEAMS = (("collector.seal", 1), ("collector.pack", 1),
-                 ("fused.dispatch", 1), ("fused.collect", 1),
-                 ("collector.collect", 1), ("collector.persist", 1),
-                 ("collector.spill", 1), ("collector.save", 11),
-                 ("collector.commit", 1), ("storage.node.put", 3),
-                 ("storage.block.put", 33))
+# on block 9's body). One seam a recovery branch (cut from eleven to pay
+# for parallel_mesh; tests/test_torch_chaos.py kills every seam on the
+# CPU), each with the report it produced on the card (best before and
+# after, rolled back, repaired, blocks removed) and the fields gated; the
+# first two are not gated: how far the first window got when the second
+# died is a race (a CPU run saw 0 -> 0, 3, 0, 0 at collector.seal)
+#   collector.seal     the window's intent only: 8 -> 8, 2, 0, 0
+#   fused.collect      dead while K5's digests copy back to the host:
+#                      8 -> 8, 2, 0, 0
+#   storage.block.put  a torn block (block 9's header without its body):
+#                      8 -> 8, 2, 0, 1 (gated: 1 removed)
+#   collector.save     whole blocks 9-12 saved, no mark: 12 -> 8, 2, 0, 4
+#                      (gated: 4 removed)
+#   collector.commit   every block saved, no commit mark: 16 -> 16, 1, 1,
+#                      0 (gated: 1 repaired)
+# The fused.dispatch raise below stops a replay before K5 launches.
+RECOVER_SEAMS = (("collector.seal", 1, {}), ("fused.collect", 1, {}),
+                 ("storage.block.put", 33, {"blocks_removed": 1}),
+                 ("collector.save", 11, {"blocks_removed": 4}),
+                 ("collector.commit", 1, {"repaired": 1}))
 
 
 def recovery_helpers(args, torch, dev, launches, w8):
@@ -2023,7 +2085,7 @@ def recovery_phases(args, torch, dev, launches, w8, rec, base) -> None:
     # recover_erc20_w8: each seam kills the second window ---------------
     cfg = config(degrade_on_collector_death=False)
     lines = []
-    for site, after in RECOVER_SEAMS:
+    for site, after, expect in RECOVER_SEAMS:
         name = f"recover_erc20_w8 {site}"
         bc = load(name, Storages(), cfg)
         raised, killed_path = kill(name, bc, cfg, site, after)
@@ -2031,6 +2093,9 @@ def recovery_phases(args, torch, dev, launches, w8, rec, base) -> None:
               f"was stopped by {raised!r}")
         best_before = bc.storages.app_state.best_block_number
         report, recover_s = settle(name, bc, cfg)
+        got = {k: getattr(report, k) for k in expect}
+        check(got == expect, f"{name}: recover reported {got}, not "
+              f"{expect}")
         drv = driver(bc, cfg)
         resumed = windowed(name, drv, fresh(wire[bc.best_block_number:]))
         same_as_uninterrupted(name, bc, drv)
@@ -3888,6 +3953,112 @@ def bridge_cluster_phase(torch, dev, launches, chain100k, nodes_100k,
     return lines
 
 
+# world 2: two gloo ranks sharing the one card (NCCL refuses a card
+# twice), at a smaller depth; the window is world 1's
+MESH_WORLD2 = ("--backend", "gloo", "--devices", "cuda:0,cuda:0",
+               "--rows", str(1 << 20), "--accounts", "10000")
+MESH_TIMEOUT_S = 420.0
+MESH_WINDOW = "fused_window_16x400"
+
+
+def run_mesh(nproc: int, args) -> tuple:
+    """``torchrun --standalone --nproc-per-node=<nproc> -m
+    khipu_tpu_torch.parallel <args>`` in a session of its own: rank 0's
+    step lines by step, and the wall seconds. Every process of the
+    session is killed if it outlives ``MESH_TIMEOUT_S``."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={nproc}", "-m", "khipu_tpu_torch.parallel",
+           *args]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=MESH_TIMEOUT_S)
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"parallel_mesh world {nproc} exited "
+          f"{proc.returncode}:\n{err[-4000:]}")
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    check(bool(lines) and lines[-1].get("ok") is True
+          and lines[-1].get("world") == nproc,
+          f"parallel_mesh world {nproc}: no ok line")
+    return {ln["step"]: ln for ln in lines[:-1]}, seconds
+
+
+def parallel_mesh_phase(launches) -> list:
+    """31: the multi-card path over ``torch.distributed``, world 1 on
+    NCCL at full width and world 2 as gloo ranks on the one card; the
+    ranks' launches add to the main paths' totals. Returns the two
+    lines."""
+    lines, worlds = [], {}
+    for nproc, args in ((1, ()), (2, MESH_WORLD2)):
+        steps, wall = run_mesh(nproc, args)
+        worlds[nproc] = steps
+        check(list(steps) == ["commit", "fixed_sharded", "level_all_gather",
+                              "snapshot_verify", "bulk_build",
+                              "fused_session48",
+                              f"fused_bulk_dag_{steps['bulk_build']['accounts']}",
+                              MESH_WINDOW],
+              f"parallel_mesh world {nproc}: steps {list(steps)}")
+        # every rank checked the others' records, the one-card path, the
+        # oracle and its launches and collectives a step
+        # (``parallel.__main__.check_records``); here what one run
+        # cannot see: K5 once a level at world 1, and the totals
+        for st in steps.values():
+            for got in st["launches"]:
+                for k in ("k1f", "k1r", "k5"):
+                    launches.total[k] += got[k]
+        bulk = steps["bulk_build"]
+        fused_steps = {n: st for n, st in steps.items()
+                       if n.startswith("fused_")}
+        if nproc == 1:
+            for name, st in fused_steps.items():
+                k5 = [g["k5"] for g in st["launches"]]
+                check(k5 == [st["levels"]], f"parallel_mesh {name}: K5 "
+                      f"{k5} != its {st['levels']} levels at world 1")
+        line = {
+            "phase": "parallel_mesh", "world": nproc,
+            "backend": steps["commit"]["backend"],
+            "rows": steps["fixed_sharded"]["rows"],
+            "length": steps["fixed_sharded"]["length"],
+            "accounts": bulk["accounts"], "bulk_nodes": bulk["nodes"],
+            "bulk_root": bulk["root"], "wall_seconds": wall,
+            "one_card_claims_seconds":
+                steps["fixed_sharded"]["one_card_seconds"],
+            "steps": {n: {"seconds": max(st["seconds"]),
+                          "setup_seconds": st["setup_seconds"],
+                          "launches": st["launches"],
+                          "collectives": st["collectives"]}
+                      for n, st in steps.items()},
+            "fused": {n: {k: st[k] for k in ("nodes", "levels", "k5_levels",
+                                             "loop_ms", "gather_ms")}
+                      for n, st in fused_steps.items()},
+            "reduced": "world 1 at BASELINE #5's and #3's widths; world 2 "
+            "cut to 1,048,576 rows and 10,000 accounts (two ranks on one "
+            "card: gloo), the window as world 1's",
+        }
+        if nproc == 1:
+            line["gather_share_of_level_loop"] = {
+                n: f["gather_ms"] / f["loop_ms"]
+                for n, f in line["fused"].items()}
+        lines.append(line)
+    w1, w2 = worlds[1], worlds[2]
+    check(w2["fixed_sharded"]["table_sha"] == w1["fixed_sharded"]["prefix_sha"]
+          and w2["level_all_gather"]["equal_one_card"],
+          "parallel_mesh: world 2's rows != world 1's first 1,048,576")
+    for name in ("fused_session48", MESH_WINDOW):
+        check(w2[name]["mapping_sha"] == w1[name]["mapping_sha"],
+              f"parallel_mesh: world 2's {name} != world 1's")
+    return lines
+
+
 def tip_of(bc):
     best = bc.best_block_number
     h = bc.get_header_by_number(best)
@@ -4066,8 +4237,8 @@ def main() -> int:
             fn, match, reps = big_runs[m]
             big_us[m].append(kernel_us(torch, fn, reps, match)[1])
     big_ms = {m: sorted(t)[1] / 1e3 for m, t in big_us.items()}
-    big_plain_ms = cuda_ms(torch, lambda: keccak_torch.absorb_ragged(
-        flat, torch.from_numpy(big_offsets), torch.from_numpy(big_lengths)), 1)
+    _, big_plain_ms = timed_once(torch, lambda: keccak_torch.absorb_ragged(
+        flat, torch.from_numpy(big_offsets), torch.from_numpy(big_lengths)))
     # bytes: the rows, 8 header bytes and 32 digest bytes a row
     big_bound, big_bound_by = sponge_bound_ms(
         n_msg, nblocks, n_msg * (length + 8 + 32))
@@ -4133,15 +4304,14 @@ def main() -> int:
     k1f_out = keccak256_device_fixed(data, device=dev)
     k1r_out = keccak_cuda.absorb_ragged(flat, big_offsets, big_lengths,
                                         mode="row")
-    k1f_plain = keccak_torch.absorb_fixed(data)
-    torch.cuda.synchronize()
+    k1f_plain, k1f_plain_ms = timed_once(
+        torch, lambda: keccak_torch.absorb_fixed(data))
     check(torch.equal(k1f_out, k1r_out), "K1f != K1r over the same rows")
     k1f_err = int((k1f_out.int() - k1f_plain.int()).abs().max())
     check(k1f_err == 0, "K1f != plain at 1M x 576")
     words_out = keccak256_device_fixed(data.view(torch.int32), device=dev)
     check(torch.equal(words_out, k1f_out), "K1f words input != bytes input")
     k1f_ms = cuda_ms(torch, lambda: keccak_cuda.absorb_fixed(data, k1f_out), 10)
-    k1f_plain_ms = cuda_ms(torch, lambda: keccak_torch.absorb_fixed(data), 2)
     k1f_bound, k1f_bound_by = sponge_bound_ms(n_msg, nblocks,
                                               n_msg * (length + 32))
     del data, flat, k1f_out, k1r_out, k1f_plain, words_out
@@ -4320,8 +4490,9 @@ def main() -> int:
                 plan.d_toff, plan.d_tchild, plan.widest)
 
         k5()
-        plain_g = fused.resolve_levels_plain(plain, total, empty, plan)
-        torch.cuda.synchronize()
+        plain_g, plain_ms = timed_once(
+            torch, lambda: fused.resolve_levels_plain(plain, total, empty,
+                                                      plan))
         err = max([int((digests.int() - plain_g.int()).abs().max())]
                   + [int((c.enc.int() - p.enc.int()).abs().max())
                      for c, p in zip(classes, plain)])
@@ -4330,8 +4501,33 @@ def main() -> int:
         # K5 rewrites the same bytes when run again on its own output
         ms = cuda_ms(torch, k5, 20)
         check(torch.equal(digests, plain_g), f"K5 relaunch changed {shape}")
-        plain_ms = cuda_ms(torch, lambda: fused.resolve_levels_plain(
-            plain, total, empty, plan), 2)
+        # the sharded fixpoint's shape (parallel/fused_sharded.py): one
+        # one-level launch a rank's share of a level; here each level in
+        # two shares, as two ranks split it, then whole as at world 1
+        lvl_dig = torch.zeros_like(digests)
+        for lvl in range(plan.nlevels):
+            lo, hi = int(plan.level_ptr[lvl]), int(plan.level_ptr[lvl + 1])
+            for a, b in ((lo, (lo + hi + 1) // 2), ((lo + hi + 1) // 2, hi)):
+                fused.resolve_level_rows(classes, total, empty, plan,
+                                         lvl_dig, a, b)
+        torch.cuda.synchronize()
+        err = max(err, int((lvl_dig.int() - plain_g.int()).abs().max()))
+        check(torch.equal(lvl_dig, plain_g),
+              f"K5 per level (two shares) != plain at the {shape} shape")
+        bounds = [torch.tensor(plan.level_ptr[lvl : lvl + 2],
+                               dtype=torch.int32).to(dev)
+                  for lvl in range(plan.nlevels)]
+
+        def k5_per_level():
+            for lvl, b in enumerate(bounds):
+                fused.resolve_level_rows(
+                    classes, total, empty, plan, lvl_dig,
+                    int(plan.level_ptr[lvl]), int(plan.level_ptr[lvl + 1]), b)
+
+        per_level_ms = cuda_ms(torch, k5_per_level, 20)
+        check(torch.equal(lvl_dig, plain_g),
+              f"K5 per level (whole) != plain at the {shape} shape")
+        k5_err = max(k5_err, err)
         ydig = torch.empty_like(digests)
         # each class's padded rows read as messages of one byte under
         # the class width: the same rate blocks a row as K1 hashed
@@ -4360,6 +4556,7 @@ def main() -> int:
             / H100_BYTES_PER_S * 1e3
         k5_shapes[shape] = {
             "k5_ms": ms, "plain_ms": plain_ms, "k1_rounds_ms": k1_rounds_ms,
+            "k5_per_level_ms": per_level_ms,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "ops_ms": ops_ms, "bytes_ms": bytes_ms,
@@ -4595,6 +4792,10 @@ def main() -> int:
                                      nodes_100k, small_chain, unloaded_100k):
         emit(line)
     del chain100k, nodes_100k, small_chain
+    gc.collect()
+    torch.cuda.empty_cache()
+    for line in parallel_mesh_phase(launches):
+        emit(line)
 
     tot = launches.total
     k1r_main = batch100["100x1+4"]
@@ -4602,7 +4803,8 @@ def main() -> int:
     emit({"kernels": [
         {"name": "keccak_ragged_k1r", "route": "cuda",
          "source": "khipu_tpu_torch/ops/csrc/keccak.cu",
-         "replaces": "khipu_tpu/ops/keccak_pallas.py:41 and :295",
+         "replaces": "khipu_tpu/ops/keccak_pallas.py:41 and :295; per "
+         "rank, khipu_tpu/parallel/keccak_sharded.py:159 (XLA)",
          "launches": tot["k1r"], "max_abs_err": k1r_err,
          "launches_note": "fast sync's content checks, each replay's "
          "genesis load and sender batches, the serial replays' trie "
@@ -4616,7 +4818,9 @@ def main() -> int:
          "replica's per-block commits, the switch's rebuilt ancestor and "
          "per-block adoption on both nodes; bridge_cluster_100k_w8: the "
          "boards' genesis loads and the sender batches of every "
-         "ExecuteBlocks",
+         "ExecuteBlocks; parallel_mesh: one a rank a call of the sharded "
+         "hasher (the bulk builds' levels, world 1 and both world-2 "
+         "ranks)",
          "shape": "100 rows, 1 and 4 rate blocks mixed, column mode",
          "ms": k1r_main["column_kernel_us"] / 1e3,
          "plain_ms": k1r_main["plain_us"] / 1e3,
@@ -4624,13 +4828,20 @@ def main() -> int:
          "bound_by": k1r_main["bound_by"], "library_ms": None},
         {"name": "keccak_fixed_k1f", "route": "cuda",
          "source": "khipu_tpu_torch/ops/csrc/keccak.cu",
-         "replaces": "khipu_tpu/ops/keccak_pallas.py:181",
+         "replaces": "khipu_tpu/ops/keccak_pallas.py:181; per rank, "
+         "khipu_tpu/parallel/keccak_sharded.py:32 (_fixed_digests, XLA)",
          "launches": tot["k1f"], "max_abs_err": k1f_err,
+         "launches_note": "the state root path's account keys (genesis, "
+         "100k) and mirror_verify's claims; parallel_mesh: one a rank a "
+         "sharded fixed hash (commit step 2, keccak256_fixed_sharded 1, "
+         "hash_level_all_gather 1, snapshot_verify_sharded 2; world 1 "
+         "and both world-2 ranks)",
          "ms": k1f_ms, "plain_ms": k1f_plain_ms, "bound_ms": k1f_bound,
          "bound_by": k1f_bound_by, "library_ms": None},
         {"name": "fixpoint_levels_k5", "route": "cuda",
          "source": "khipu_tpu_torch/trie/csrc/fixpoint.cu",
-         "replaces": "khipu_tpu/trie/fused.py:193",
+         "replaces": "khipu_tpu/trie/fused.py:193; a level a rank, "
+         "khipu_tpu/parallel/fused_sharded.py:39 (XLA)",
          "launches": tot["k5"], "max_abs_err": k5_err,
          "launches_note": "state root 3, window_admit 1, one a device "
          "window of each windowed replay (the kesque replay among them), "
@@ -4638,7 +4849,10 @@ def main() -> int:
          "RegularSyncService's windowed import after the fast sync, 2; "
          "serve_erc20_100k_w8: the import under RPC load, one a window; "
          "bridge_cluster_100k_w8: one a window of every ExecuteBlocks "
-         "batch, two shards' batches at once among them",
+         "batch, two shards' batches at once among them; parallel_mesh: "
+         "one a level a rank's share of the sharded fixpoint reaches "
+         "(the session, the bulk DAG and the window; world 1 once a "
+         "level)",
          "shape": "window_16x400",
          "ms": k5_window["k5_ms"], "plain_ms": k5_window["plain_ms"],
          "bound_ms": k5_window["bound_ms"], "bound_by": k5_window["bound_by"],
@@ -4654,7 +4868,8 @@ def main() -> int:
          "admits; a size class's filler digest is hashed once a process "
          "and card, so live_sync_erc20_100k's mirror, whose classes "
          "earlier phases made, launches none (its regular sync would "
-         "launch one a class if run alone)",
+         "launch one a class if run alone); parallel_mesh none (no "
+         "mirror)",
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_bound_by, "library_ms": None},
         {"name": "mirror_verify_k4", "route": "cuda",
@@ -4664,7 +4879,8 @@ def main() -> int:
          "launches_note": "each mirror verify: mirror_verify, fast sync, "
          "window_admit, every windowed replay's and resume's gate, "
          "live_sync_erc20_100k's mirror after its windowed import, and "
-         "serve_erc20_100k_w8's after its import",
+         "serve_erc20_100k_w8's after its import; parallel_mesh none "
+         "(its verify is K1f and a compare)",
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
          "bound_by": k4_bound_by, "library_ms": None},
         {"name": "exec_validate_k6", "route": "cuda",
@@ -4673,7 +4889,7 @@ def main() -> int:
          "XLA program)",
          "launches": tot["k6"], "max_abs_err": k6["max_abs_err"],
          "launches_note": "one a fast batch of replay_transfers_par_w16 "
-         "(exec_device on); 0 elsewhere",
+         "(exec_device on); 0 elsewhere, parallel_mesh among them",
          "shape": "200 rows (a block's transfer batch)",
          "ms": k6["sizes"][200]["ms"], "plain_ms": k6["sizes"][200]["plain_ms"],
          "bound_ms": k6["sizes"][200]["bound_ms"], "bound_by": "bytes",

@@ -42,7 +42,7 @@ from khipu_tpu_torch.device import resolve_device
 from khipu_tpu_torch.domain.account import address_key
 from khipu_tpu_torch.domain.block_header import BlockHeader
 from khipu_tpu_torch.ledger.world import BlockWorldState
-from khipu_tpu_torch.observability.profiler import H2D, HOST, LEDGER
+from khipu_tpu_torch.observability.profiler import D2H, H2D, HOST, LEDGER
 from khipu_tpu_torch.observability.registry import REGISTRY
 from khipu_tpu_torch.observability.trace import span
 from khipu_tpu_torch.ops.keccak_torch import RATE
@@ -446,7 +446,8 @@ class WindowCommitter:
                     real = self._ext_source(ref)
                     if isinstance(real, tuple):
                         digests, row = real
-                        real = digests[row].cpu().numpy().tobytes()
+                        with LEDGER.transfer("seal.alias_gather", D2H, 32):
+                            real = digests[row].cpu().numpy().tobytes()
                     if real is not None:
                         mapping[ref] = real
                 pos = enc.find(_PLACEHOLDER_PREFIX, pos + 32)

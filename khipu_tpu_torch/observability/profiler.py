@@ -59,11 +59,42 @@ __all__ = [
     "TransferLedger",
     "LEDGER",
     "COLLECT_CLASSES",
+    "KNOWN_SITES",
 ]
 
 H2D = "h2d"  # host -> device upload
 D2H = "d2h"  # device -> host download
 HOST = "host"  # host-side persistence traffic (classification only)
+
+# every site string the port meters: the registry khipu-lint's KL001
+# (khipu_tpu_torch/analysis) checks each literal ``LEDGER.transfer`` /
+# ``LEDGER.record`` site against (a misspelled site forks its own
+# series in khipu_device_transfer_* and drops out of its COLLECT_CLASSES
+# stream). The JAX package's set, cut to the sites the port calls.
+# Adding an instrumentation seam means adding its site here.
+KNOWN_SITES = frozenset({
+    # fused fixpoint (trie/fused.py)
+    "fused.collect",
+    # the adaptive commit's one-shot calibration upload (sync/adaptive.py)
+    "adaptive.probe",
+    # device-resident node mirror (storage/device_mirror.py)
+    "mirror.init", "mirror.claim", "mirror.admit",
+    "mirror.admit_window", "mirror.get", "mirror.verify", "mirror.spill",
+    # window commit + block persistence (ledger/window.py, sync/replay.py)
+    "window.store", "block.save",
+    # the seal sub-phases, named as their spans
+    "seal.pack", "seal.alias_gather", "seal.dispatch_build",
+    "seal.upload", "seal.rootcheck", "seal.journal",
+    # execute stage: the vectorized batches, the per-tx residue, K6
+    "exec.batch", "exec.residue", "exec.batch_device",
+    # multi-card paths (parallel/)
+    "shard.dispatch", "shard.gather", "shard.keccak", "shard.verify",
+    # batched Keccak (ops/keccak.py)
+    "ops.keccak",
+    # the kesque engine: window spills, snapshot ingest, compaction,
+    # the rebalance's segment ship
+    "kesque.append", "kesque.ingest", "kesque.compact", "kesque.ship",
+})
 
 # which logical stream a collect-phase byte belongs to — the breakdown
 # window_report serves so "collect is slow" decomposes into hauling
@@ -74,6 +105,7 @@ COLLECT_CLASSES = {
     "fused.rootcheck": "placeholder-resolution",
     "seal.rootcheck": "placeholder-resolution",
     "mirror.get": "placeholder-resolution",
+    "shard.gather": "placeholder-resolution",
     "mirror.admit_window": "mirror-admit",
     "seal.alias_gather": "mirror-admit",
     "mirror.spill": "store-write",

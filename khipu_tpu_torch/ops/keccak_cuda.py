@@ -16,6 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from khipu_tpu_torch.observability.profiler import H2D, LEDGER
 from khipu_tpu_torch.ops import build
 
 FIXED_LAUNCHES = 0
@@ -144,14 +145,15 @@ def absorb_ragged(
     if mode not in ("row", "column"):
         raise ValueError(f"unknown K1r mode {mode!r}")
     out = _check_out(out, n, blob.device)
-    if header is None:
-        header = torch.from_numpy(host)
-    elif (header.device != blob.device or header.dtype != torch.int32
-          or tuple(header.shape) != (2 * n,) or not header.is_contiguous()):
+    if header is not None and (
+            header.device != blob.device or header.dtype != torch.int32
+            or tuple(header.shape) != (2 * n,) or not header.is_contiguous()):
         raise ValueError("K1r's header is int32[2n] on the blob's card")
     if n == 0:
         return out
-    header = header.to(blob.device)
+    if header is None:
+        with LEDGER.transfer("ops.keccak", H2D, host.nbytes):
+            header = torch.from_numpy(host).to(blob.device)
     lib = build.load()
     dev, stream = build.launch_args(blob)
     rc = lib.khipu_keccak256_ragged(

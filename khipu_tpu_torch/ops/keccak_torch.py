@@ -52,11 +52,13 @@ for _x in range(5):
 def _consts(device: torch.device):
     """Per-device constant tensors of the permutation: rho's left and
     right shifts, its low-bit masks, and pi's source lanes."""
+    # khipu-lint: ok KL001 a few hundred constant bytes, once a device
     rot = torch.tensor(_ROT, dtype=torch.int64, device=device)[:, None]
     return (
         rot,
         (64 - rot) % 64,
         (torch.ones_like(rot) << rot) - 1,  # low `rot` bits
+        # khipu-lint: ok KL001 as above
         torch.tensor(_PI_SRC, dtype=torch.int64, device=device),
     )
 

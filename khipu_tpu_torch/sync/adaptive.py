@@ -41,6 +41,7 @@ import torch
 
 from khipu_tpu_torch.base.keccak import keccak256
 from khipu_tpu_torch.device import resolve_device
+from khipu_tpu_torch.observability.profiler import H2D, LEDGER
 from khipu_tpu_torch.observability.registry import REGISTRY
 
 ADAPTIVE_GAUGES = REGISTRY.gauge_group("khipu_adaptive", {
@@ -94,8 +95,9 @@ def _measure_probe(device: torch.device, margin: float) -> ProbeResult:
     host = rng.integers(0, 256, size=(_PROBE_ROWS, _PROBE_COLS),
                         dtype=np.uint8)
     idx = rng.permutation(_PROBE_ROWS).astype(np.int64)
-    dev = torch.from_numpy(host).to(device)
-    idx_dev = torch.from_numpy(idx).to(device)
+    with LEDGER.transfer("adaptive.probe", H2D, host.nbytes + idx.nbytes):
+        dev = torch.from_numpy(host).to(device)
+        idx_dev = torch.from_numpy(idx).to(device)
     dev.index_select(0, idx_dev)  # warm: allocator, kernel load
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)

@@ -455,6 +455,7 @@ class _WindowCollector:
                 # checks raise CollectorDied; _current stays set so
                 # take_pending can re-run the torn job.
                 return
+            # khipu-lint: ok KL002 InjectedDeath has its handler above;
             # anything else is recorded and re-raised on the driver by
             # submit()/drain(): fail-stop, not swallowed
             except BaseException as exc:  # noqa: BLE001

@@ -81,6 +81,9 @@ def resolve_levels(encs: Sequence[torch.Tensor], bases: Sequence[int],
     if nlevels < 1:
         raise ValueError("level_ptr needs at least two entries")
     k = len(encs)
+    # khipu-lint: ok KL001 K5's launch table, 8 B x (3 x classes + 1) a
+    # launch, not metered: under 100 B beside the pack each caller meters
+    # (seal.upload, shard.dispatch)
     table = torch.tensor(
         [e.data_ptr() for e in encs] + list(bases) + [total_rows]
         + [e.shape[1] // RATE for e in encs],

@@ -310,34 +310,73 @@ def resolve_levels_plain(classes: List[PackedClass], total_rows: int,
     u8[total_rows, 32]. Each row is hashed once."""
     device = classes[0].enc.device
     digests = torch.empty((total_rows, 32), dtype=torch.uint8, device=device)
+    for lvl in range(plan.nlevels):
+        _resolve_rows_plain(classes, total_rows, ext, plan, digests,
+                            plan.level_ptr[lvl], plan.level_ptr[lvl + 1])
+    return digests
+
+
+def _resolve_rows_plain(classes, total_rows, ext, plan, digests, lo, hi):
+    """The plain version's work on rows ``order[lo:hi]``, all of one
+    level: substitute their triples from ``cat(digests, ext)``, then
+    hash them into ``digests``."""
+    device = digests.device
+    rows_l = plan.order[lo:hi]
+    src = torch.cat([digests, ext], dim=0)
     bounds = [c.base for c in classes] + [total_rows]
     span32 = torch.arange(32, device=device)
-    for lvl in range(plan.nlevels):
-        rows_l = plan.order[plan.level_ptr[lvl] : plan.level_ptr[lvl + 1]]
-        src = torch.cat([digests, ext], dim=0)
-        cuts = np.searchsorted(rows_l, bounds)
-        for c, lo, hi in zip(classes, cuts[:-1], cuts[1:]):
-            if lo == hi:
-                continue
-            rows = rows_l[lo:hi].astype(np.int64)
-            starts = plan.tptr[rows]
-            counts = plan.tptr[rows + 1] - starts
-            # CSR expansion: the indices of every triple of these rows
-            first = np.repeat(starts - np.cumsum(counts) + counts, counts)
-            tidx = first + np.arange(int(counts.sum()))
-            local = torch.from_numpy(rows - c.base).to(device)
-            if len(tidx):
-                parents = torch.from_numpy(
-                    np.repeat(rows - c.base, counts)).to(device)
-                cols = torch.from_numpy(
-                    plan.toff[tidx].astype(np.int64)).to(device)
-                child = torch.from_numpy(
-                    plan.tchild[tidx].astype(np.int64)).to(device)
-                c.enc[parents[:, None], cols[:, None] + span32] = src[child]
-            digests[torch.from_numpy(rows).to(device)] = (
-                keccak_torch.absorb_padded(c.enc[local])
-            )
-    return digests
+    cuts = np.searchsorted(rows_l, bounds)
+    for c, a, b in zip(classes, cuts[:-1], cuts[1:]):
+        if a == b:
+            continue
+        rows = rows_l[a:b].astype(np.int64)
+        starts = plan.tptr[rows]
+        counts = plan.tptr[rows + 1] - starts
+        # CSR expansion: the indices of every triple of these rows
+        first = np.repeat(starts - np.cumsum(counts) + counts, counts)
+        tidx = first + np.arange(int(counts.sum()))
+        local = torch.from_numpy(rows - c.base).to(device)
+        if len(tidx):
+            parents = torch.from_numpy(
+                np.repeat(rows - c.base, counts)).to(device)
+            cols = torch.from_numpy(
+                plan.toff[tidx].astype(np.int64)).to(device)
+            child = torch.from_numpy(
+                plan.tchild[tidx].astype(np.int64)).to(device)
+            c.enc[parents[:, None], cols[:, None] + span32] = src[child]
+        digests[torch.from_numpy(rows).to(device)] = (
+            keccak_torch.absorb_padded(c.enc[local])
+        )
+
+
+def resolve_level_rows(classes: List[PackedClass], total_rows: int,
+                       ext: torch.Tensor, plan: LevelPlan,
+                       digests: torch.Tensor, lo: int, hi: int,
+                       d_bounds: Optional[torch.Tensor] = None) -> None:
+    """In place: rows ``order[lo:hi]``, which lie in one level, each
+    substituted from ``digests`` (their children's rows must hold their
+    final digests) and the resolved-input tile ``ext``, then hashed into
+    ``digests``. On the card one K5 launch over a one-level plan
+    ``level_ptr = [lo, hi]`` (``d_bounds``, that pair as an int32 tensor
+    on the card, saves its upload); on the CPU the plain version's work
+    on those rows. The sharded fixpoint (parallel/fused_sharded.py) runs
+    a level's rows this way, a share on each rank."""
+    if hi <= lo:
+        return
+    device = digests.device
+    if device.type == "cpu":
+        _resolve_rows_plain(classes, total_rows, ext, plan, digests, lo, hi)
+        return
+    if d_bounds is None:
+        # khipu-lint: ok KL001 the one-level bounds (8 B) when the caller
+        # passes none; the sharded fixpoint uploads every level's under
+        # shard.dispatch
+        d_bounds = torch.tensor([lo, hi], dtype=torch.int32).to(device)
+    fixpoint_cuda.resolve_levels(
+        [c.enc for c in classes], [c.base for c in classes], digests, ext,
+        plan.d_order, d_bounds, plan.d_tptr, plan.d_toff, plan.d_tchild,
+        hi - lo,
+    )
 
 
 def resolve_levels(classes: List[PackedClass], total_rows: int,
@@ -396,6 +435,8 @@ class FusedJob:
             self._host = torch.empty(
                 self.digests.shape, dtype=torch.uint8, pin_memory=True
             )
+            # khipu-lint: ok KL001 the digests' copy back begins here and is
+            # metered by collect() (fused.collect), where the host waits for it
             self._host.copy_(self.digests, non_blocking=True)
             self._event = torch.cuda.Event()
             self._event.record()
@@ -414,6 +455,9 @@ class FusedJob:
         present = [r for r in refs if r in self.dpos]
         if not present:
             return out
+        # khipu-lint: ok KL001 the gather's row indices, 8 B a ref: the
+        # JAX package meters the digests back only (seal.rootcheck), and
+        # the two packages' ledgers are held equal site by site
         rows = torch.tensor(
             [self.dpos[r] for r in present], dtype=torch.long,
             device=self.digests.device,
@@ -514,6 +558,8 @@ class ExtRows:
                 g[2].append(row)
 
         def idx(rows):
+            # khipu-lint: ok KL001 called only inside tile()'s
+            # seal.alias_gather transfer, whose bytes count these indices
             return torch.tensor(rows, dtype=torch.long, device=device)
 
         # only the row indices and the host digests cross to the device;

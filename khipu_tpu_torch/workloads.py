@@ -40,6 +40,7 @@ from khipu_tpu_torch.base.rlp import rlp_encode_int
 from khipu_tpu_torch.domain.account import Account, address_key
 from khipu_tpu_torch.domain.block_header import BlockHeader
 from khipu_tpu_torch.domain.blockchain import GenesisSpec
+from khipu_tpu_torch.observability.profiler import D2H, LEDGER
 from khipu_tpu_torch.ops.keccak import keccak256_batch, keccak256_fixed
 
 Pairs = List[Tuple[bytes, bytes]]
@@ -52,7 +53,9 @@ CODE_BYTES = 2048
 
 
 def _hash_rows(addrs: np.ndarray, device) -> List[bytes]:
-    digests = keccak256_fixed(addrs, device=device).cpu().numpy()
+    digests = keccak256_fixed(addrs, device=device)
+    with LEDGER.transfer("ops.keccak", D2H, digests.numel()):
+        digests = digests.cpu().numpy()
     return [digests[i].tobytes() for i in range(digests.shape[0])]
 
 

@@ -232,7 +232,10 @@ def test_replica_tails_to_head():
     replica = primary.replica("r1")
     try:
         replica.start()
-        wait_for(lambda: replica.blockchain.best_block_number == len(base),
+        # the tail pass counts its blocks after the last one is in, so
+        # the head can show before the count does
+        wait_for(lambda: replica.blockchain.best_block_number == len(base)
+                 and replica.blocks_applied == len(base),
                  "the replica did not reach the head")
         for n in range(len(base) + 1):
             assert (replica.blockchain.get_header_by_number(n).hash

@@ -1,7 +1,8 @@
 """The port stands alone: importing every khipu_tpu_torch module (the
 consensus, chaos, reorg, pool and miner modules among them, and the
 serving plane and node front: jsonrpc/, serving/, service_board,
-__main__) loads neither JAX, nor the khipu_tpu reference package, nor
+__main__, and the multi-card paths and khipu-lint: parallel/, analysis/)
+loads neither JAX, nor the khipu_tpu reference package, nor
 gRPC, and an entry point that is asked for the card where there is none
 raises instead of running on the CPU."""
 
@@ -79,7 +80,19 @@ want = {"khipu_tpu_torch.consensus", "khipu_tpu_torch.consensus.ethash",
         "khipu_tpu_torch.bridge", "khipu_tpu_torch.cluster",
         "khipu_tpu_torch.cluster.ring", "khipu_tpu_torch.cluster.client",
         "khipu_tpu_torch.cluster.health",
-        "khipu_tpu_torch.cluster.rebalance"}
+        "khipu_tpu_torch.cluster.rebalance", "khipu_tpu_torch.parallel",
+        "khipu_tpu_torch.parallel.mesh",
+        "khipu_tpu_torch.parallel.keccak_sharded",
+        "khipu_tpu_torch.parallel.fused_sharded",
+        "khipu_tpu_torch.parallel.__main__", "khipu_tpu_torch.analysis",
+        "khipu_tpu_torch.analysis.core", "khipu_tpu_torch.analysis.lockorder",
+        "khipu_tpu_torch.analysis.report", "khipu_tpu_torch.analysis.__main__",
+        "khipu_tpu_torch.analysis.rules",
+        "khipu_tpu_torch.analysis.rules.kl001_ledger",
+        "khipu_tpu_torch.analysis.rules.kl002_chaos",
+        "khipu_tpu_torch.analysis.rules.kl003_determinism",
+        "khipu_tpu_torch.analysis.rules.kl005_observability",
+        "khipu_tpu_torch.analysis.rules.kl006_defaults"}
 print(len(names), sorted(want - set(names)) + bad)
 """
 
