@@ -117,7 +117,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.khipu_keccak256_ragged.restype = i
     lib.khipu_mirror_hash.argtypes = [p, ll, ll, i, i, p, ll, i, p]
     lib.khipu_mirror_hash.restype = i
-    lib.khipu_mirror_verify.argtypes = [p, ll, ll, i, i, p, ll, p, i, p]
+    lib.khipu_mirror_verify_maps.argtypes = [p, ll, i, i, p, ll, p]
+    lib.khipu_mirror_verify_maps.restype = i
+    lib.khipu_mirror_verify_cap.argtypes = [i, p]
+    lib.khipu_mirror_verify_cap.restype = i
+    lib.khipu_mirror_verify.argtypes = [p, i, i, i, i, p, i, p]
     lib.khipu_mirror_verify.restype = i
     lib.khipu_fixpoint_levels.argtypes = [p, i, p, p, i, p, p, p, p, p, ll,
                                           ll, i, p]
