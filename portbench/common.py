@@ -51,9 +51,12 @@ class Check:
 class Reading:
     """What a metric's reader gets: the cell, the set-up time, the
     measured window (its calls, their latencies, the nodes a call
-    handles), the device trace (None where the run was not traced) and
-    the spans the program recorded (name -> seconds, summed over set-up
-    and window; empty where the run was not traced)."""
+    handles), the device trace (None where the run was not traced), the
+    spans the program recorded (name -> seconds, summed over set-up
+    and window; empty where the run was not traced) and the work a call
+    does as its driver states it (``rate_blocks``: Keccak rate blocks
+    absorbed, ``bytes_moved``: bytes read and written; worked out from
+    the inputs made at set-up, empty where the driver states none)."""
     config: dict
     traffic: dict
     setup_s: float
@@ -63,6 +66,7 @@ class Reading:
     latencies_ms: List[float] = field(default_factory=list)
     trace: Optional[object] = None
     spans: Dict[str, float] = field(default_factory=dict)
+    work: Dict[str, int] = field(default_factory=dict)
 
 
 class Sampler:

@@ -1,15 +1,16 @@
 """The controls of ``correct``, on the card at a cell's own size.
 
     python3 -m portbench.controls --workload <name> --seeds 1,2,3 \
-        [--rounds 12 | --fault stale|half|altered] [--seconds 2]
+        [--rounds 12 | --fault stale|half|altered|cached] [--seconds 2]
 
 ``--rounds``: the reference at that many Keccak-f rounds is put in the
 program's place (12 is the control: the nearest weaker sponge, as
 KangarooTwelve runs it); ``--fault``: the program runs with that fault
-planted underneath its timed path (``faults.py``). Each seed runs the
-cell's set-up, a short window and its comparison in this one process,
-and prints one line: the seed, ``correct`` and every number compared
-beside its limit. The benchmark's own runs never run a control.
+planted underneath its timed path (the seams its driver declares,
+``faults.planted``). Each seed runs the cell's set-up, a short window
+and its comparison in this one process, and prints one line: the seed,
+``correct`` and every number compared beside its limit. The benchmark's
+own runs never run a control.
 """
 
 from __future__ import annotations
@@ -40,10 +41,10 @@ def main(argv=None) -> int:
         return 2
     device = torch.device("cuda", 0)
     manifest = load_manifest()
-    driver = Cell(manifest, args.workload).traffic["driver"]
+    cell = Cell(manifest, args.workload)
     for seed in (int(s) for s in args.seeds.split(",")):
-        ctx = (faults.planted(args.fault, driver) if args.fault
-               else contextlib.nullcontext())
+        ctx = (faults.planted(args.fault, cell.traffic["driver"], cell.bench_dir)
+               if args.fault else contextlib.nullcontext())
         with ctx:
             result, _ = run_cell(args.workload, seed, args.seconds, False,
                                  device, manifest=manifest,

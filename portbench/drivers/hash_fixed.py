@@ -22,8 +22,23 @@ from __future__ import annotations
 
 import torch
 
-from portbench import common, reference
+from portbench import common, faults, reference
 from portbench.common import Check
+
+
+def fault_seams(fault: str):
+    """K1f's wrapper (on the card) and its plain version (on the CPU)."""
+    from khipu_tpu_torch.ops import keccak_cuda, keccak_torch
+
+    return [(mod, "absorb_fixed", faults.hash_wrapper(mod.absorb_fixed, fault))
+            for mod in (keccak_cuda, keccak_torch)]
+
+
+def cpu_launch_seams():
+    """K1f's plain version, counted as ``keccak_cuda.FIXED_LAUNCHES``."""
+    from khipu_tpu_torch.ops import keccak_cuda, keccak_torch
+
+    return [(keccak_torch, "absorb_fixed", keccak_cuda, "FIXED_LAUNCHES")]
 
 
 class Driver:
@@ -48,10 +63,14 @@ class Driver:
         program's place."""
         self.entry = lambda rows: reference.keccak256_rows(rows, rounds)
 
+    def inputs(self):
+        """The batches the calls go round, made from the seed."""
+        return [common.random_rows(torch, self.rows, self.length, self.seed,
+                                   10 + b, self.device)
+                for b in range(self.nbatches)]
+
     def setup(self) -> None:
-        self.batches = [common.random_rows(torch, self.rows, self.length,
-                                           self.seed, 10 + b, self.device)
-                        for b in range(self.nbatches)]
+        self.batches = self.inputs()
 
     def _call(self, i: int, keep: bool) -> None:
         b = i % self.nbatches

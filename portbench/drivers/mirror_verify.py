@@ -23,8 +23,30 @@ import time
 import numpy as np
 import torch
 
-from portbench import common, reference
+from portbench import common, faults, reference
 from portbench.common import Check
+
+
+def fault_seams(fault: str):
+    """K4's entry (its wrapper on the card, its plain version on the
+    CPU); for ``half`` the admit as well, for ``altered`` the read-back."""
+    from khipu_tpu_torch.storage import device_mirror
+
+    seams = [(device_mirror, "verify_planes",
+              faults.verify_wrapper(device_mirror.verify_planes, fault))]
+    mirror, cls = device_mirror.DeviceNodeMirror, device_mirror._ClassMirror
+    if fault == "half":
+        seams.append((mirror, "admit_packed", faults.admit_wrapper(mirror.admit_packed)))
+    if fault == "altered":
+        seams.append((cls, "fetch_row", faults.fetch_wrapper(cls.fetch_row)))
+    return seams
+
+
+def cpu_launch_seams():
+    """K4's entry, counted as ``mirror_cuda.VERIFY_LAUNCHES``."""
+    from khipu_tpu_torch.storage import device_mirror, mirror_cuda
+
+    return [(device_mirror, "verify_planes", mirror_cuda, "VERIFY_LAUNCHES")]
 
 
 class Driver:
@@ -56,6 +78,12 @@ class Driver:
         """The control: the reference's verify at ``rounds`` rounds in
         the program's place (the mirror is still built and read back)."""
         self.control_rounds = rounds
+
+    def inputs(self):
+        """The rows, the altered rows and the rows read back, made from
+        the seed."""
+        return [self._make_rows(), torch.from_numpy(self.altered),
+                torch.from_numpy(self.sample)]
 
     def _make_rows(self):
         return common.random_rows(torch, self.rows, self.length, self.seed,

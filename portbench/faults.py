@@ -3,7 +3,9 @@ and for the controls (``python3 -m portbench.controls``, on the card).
 The benchmark's own runs never plant one.
 
 Each fault patches the program's kernel wrapper (on the card) and its
-plain version (on the CPU) that the cell's entry reaches:
+plain version (on the CPU) that the cell's entry reaches. Which
+functions those are is the driver's to say (its ``fault_seams``); the
+wrappers below are what a driver builds its seams from:
 
 * ``stale``: the call returns the answer it gave before, unchanged;
 * ``half``: half of the rows are left out (of each hash, of each
@@ -20,11 +22,15 @@ apply.
 from __future__ import annotations
 
 import contextlib
+from pathlib import Path
+
+from portbench import run
 
 FAULTS = ("stale", "half", "altered", "cached")
 
 
-def _hash_wrapper(orig, fault):
+def hash_wrapper(orig, fault):
+    """A digest function ``orig(data, ...) -> u8[n, 32]`` with ``fault``."""
     state = {}
 
     def wrapped(data, *args, **kwargs):
@@ -47,7 +53,9 @@ def _hash_wrapper(orig, fault):
     return wrapped
 
 
-def _verify_wrapper(orig, fault):
+def verify_wrapper(orig, fault):
+    """A verify ``orig(planes, claimed, nblocks, exact_len) -> count``
+    with ``fault``."""
     state = {}
 
     def wrapped(planes, claimed, nblocks, exact_len):
@@ -68,7 +76,9 @@ def _verify_wrapper(orig, fault):
     return wrapped
 
 
-def _admit_wrapper(orig):
+def admit_wrapper(orig):
+    """An ``admit_packed`` method that admits half of the rows (whole
+    tiles of 1,024)."""
     def wrapped(self, hashes, rows, lengths=None, exact=False):
         half = rows.shape[0] // 2 // 1024 * 1024
         return orig(self, hashes[:half], rows[:half],
@@ -77,7 +87,9 @@ def _admit_wrapper(orig):
     return wrapped
 
 
-def _fetch_wrapper(orig):
+def fetch_wrapper(orig):
+    """A ``fetch_row`` method whose first row read back has one bit
+    altered."""
     state = {"done": False}
 
     def wrapped(self, key):
@@ -102,50 +114,50 @@ def _patched(pairs):
             setattr(mod, name, old)
 
 
-def planted(fault: str, driver: str):
+def _declared(driver: str, bench_dir: Path, signature: str):
+    """The function that the driver's module declares by ``signature``."""
+    name = signature.split("(")[0]
+    fn = getattr(run.load_driver(bench_dir, driver), name, None)
+    if fn is None:
+        raise ValueError(f"the driver {driver!r} declares no {name}: its module "
+                         f"has to define {signature}")
+    return fn
+
+
+def planted(fault: str, driver: str, bench_dir: Path = run.BENCH_DIR):
     """A context in which the timed path of the cells that ``driver``
-    (a traffic's driver) runs carries ``fault``."""
+    (a traffic's driver, found under ``bench_dir``) runs carries
+    ``fault``: the driver's ``fault_seams(fault)`` patched in."""
     if fault not in FAULTS:
         raise ValueError(f"unknown fault {fault!r}; one of {FAULTS}")
-    from khipu_tpu_torch.ops import keccak_cuda, keccak_torch
-    from khipu_tpu_torch.storage import device_mirror
-
-    if driver == "hash_fixed":
-        return _patched([
-            (keccak_cuda, "absorb_fixed", _hash_wrapper(keccak_cuda.absorb_fixed, fault)),
-            (keccak_torch, "absorb_fixed", _hash_wrapper(keccak_torch.absorb_fixed, fault)),
-        ])
-    if driver != "mirror_verify":
-        raise ValueError(f"no faults for the driver {driver!r}")
-    pairs = [(device_mirror, "verify_planes",
-              _verify_wrapper(device_mirror.verify_planes, fault))]
-    mirror, cls = device_mirror.DeviceNodeMirror, device_mirror._ClassMirror
-    if fault == "half":
-        pairs.append((mirror, "admit_packed", _admit_wrapper(mirror.admit_packed)))
-    if fault == "altered":
-        pairs.append((cls, "fetch_row", _fetch_wrapper(cls.fetch_row)))
-    return _patched(pairs)
+    seams = _declared(driver, bench_dir, "fault_seams(fault) -> "
+                      "[(owner, attribute, replacement), ...]")(fault)
+    if not seams:
+        raise ValueError(f"the driver {driver!r} plants no seam for {fault!r}")
+    return _patched(seams)
 
 
-def cpu_launch_counters():
-    """On the CPU the port runs the plain versions of K1f and K4, which
-    launch nothing; this context counts each such call as the kernel's
+def _counting(orig, wrapper, counter: str):
+    """``orig`` (a plain version, first argument a tensor) counting each
+    call on the CPU as ``wrapper``'s launch counter ``counter`` counts a
+    launch on the card."""
+    from khipu_tpu_torch.ops import build
+
+    def counted(data, *args, **kwargs):
+        if not data.is_cuda:
+            build.count_launch(wrapper.__name__, counter)
+        return orig(data, *args, **kwargs)
+
+    return counted
+
+
+def cpu_launch_counters(driver: str, bench_dir: Path = run.BENCH_DIR):
+    """On the CPU the port runs the plain versions of its kernels, which
+    launch nothing; this context counts each call of the plain versions
+    that ``driver`` declares (its ``cpu_launch_seams()``) as the kernel's
     wrapper counts a launch on the card, so that the cells' launch
     checks can be exercised without a card."""
-    from khipu_tpu_torch.ops import build, keccak_cuda, keccak_torch
-    from khipu_tpu_torch.storage import device_mirror, mirror_cuda
-
-    def counting(orig, wrapper, counter):
-        def counted(data, *args, **kwargs):
-            if not data.is_cuda:
-                build.count_launch(wrapper.__name__, counter)
-            return orig(data, *args, **kwargs)
-
-        return counted
-
-    return _patched([
-        (keccak_torch, "absorb_fixed",
-         counting(keccak_torch.absorb_fixed, keccak_cuda, "FIXED_LAUNCHES")),
-        (device_mirror, "verify_planes",
-         counting(device_mirror.verify_planes, mirror_cuda, "VERIFY_LAUNCHES")),
-    ])
+    seams = _declared(driver, bench_dir, "cpu_launch_seams() -> "
+                      "[(owner, attribute, wrapper module, counter), ...]")()
+    return _patched([(owner, name, _counting(getattr(owner, name), wrapper, counter))
+                     for owner, name, wrapper, counter in seams])

@@ -1,5 +1,8 @@
-"""The least time one NVIDIA H100 SXM could take for a Keccak-256 sponge
-over equal-length rows: the yardstick of every ``*_roofline`` metric.
+"""The least time one NVIDIA H100 SXM could take for Keccak-256 sponges:
+the yardstick of every ``*_roofline`` metric. ``bound_s`` takes the work
+as counted (rate blocks absorbed, bytes moved), so rows of mixed lengths
+are bounded by the sum of their blocks; the other functions count it for
+rows of one length.
 
 The counts are fixed per rate block and per byte and are never read from
 a kernel, so they count the same work whatever implements it. Peaks are
@@ -27,12 +30,19 @@ def rate_blocks(length: int) -> int:
     return length // RATE + 1
 
 
+def bound_s(rate_blocks_absorbed: int, bytes_moved: int):
+    """(seconds, "operations" or "bytes"): the least time for sponges
+    that absorb ``rate_blocks_absorbed`` rate blocks in all and move
+    ``bytes_moved`` bytes."""
+    ops_s = rate_blocks_absorbed * SPONGE_OPS_PER_BLOCK / H100_INT32_OPS_PER_S
+    bytes_s = bytes_moved / H100_BYTES_PER_S
+    return max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s else "bytes")
+
+
 def sponge_bound_s(rows: int, length: int, bytes_moved: int):
     """(seconds, "operations" or "bytes"): the least time for ``rows``
     sponges of ``length``-byte messages that move ``bytes_moved`` bytes."""
-    ops_s = rows * rate_blocks(length) * SPONGE_OPS_PER_BLOCK / H100_INT32_OPS_PER_S
-    bytes_s = bytes_moved / H100_BYTES_PER_S
-    return max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s else "bytes")
+    return bound_s(rows * rate_blocks(length), bytes_moved)
 
 
 def hash_bound_s(rows: int, length: int):

@@ -7,10 +7,27 @@ traffic mix; each is a file of its own, found by name:
 
 * ``configs/<config>.json``: the sizes, the source and the guarantees;
 * ``traffic/<traffic>.json``: the mix, and the ``driver`` that runs it;
-* ``drivers/<driver>.py``: set-up, the timed call, the read-back after
-  the window and the comparison with the reference;
+* ``drivers/<driver>.py``: everything the harness, the faults, the
+  controls and the tests need of a driver, in one file (below);
 * ``metrics/<metric>.py``: one reader a metric, end-to-end or per
   layer, ``read(reading) -> float or None``.
+
+A driver module holds:
+
+* ``Driver(config, traffic, seed, device)`` with ``setup()``, ``warm()``,
+  ``call(i)`` (the timed call), ``launches()`` (the kernel launches so
+  far, or None), ``close_window(calls, launches)`` (the program's
+  read-back, then its state freed), ``check() -> (checks, failed)``,
+  ``use_reference(rounds)`` (the control), ``inputs()`` (the seeded
+  tensors that define a run's inputs), the attributes ``in_flight`` and
+  ``nodes_per_call``, and optionally ``work`` (``common.Reading.work``),
+  set at set-up;
+* ``fault_seams(fault)``: the ``(owner, attribute, replacement)``
+  triples that plant ``fault`` underneath the timed path
+  (``faults.planted``);
+* ``cpu_launch_seams()``: the ``(owner, attribute, wrapper module,
+  counter)`` of each plain function that stands in for a kernel on the
+  CPU (``faults.cpu_launch_counters``).
 
 Set-up (process start to the first timed call) makes the inputs from the
 seed, builds the program's state, warms up the cell's own shapes and
@@ -78,6 +95,12 @@ def load_module(path: Path, label: str):
     return mod
 
 
+def load_driver(bench_dir: Path, driver: str):
+    """The module of a traffic's ``driver``, loaded from its file."""
+    return load_module(find(bench_dir, "drivers", driver, ".py"),
+                       f"portbench_driver_{driver}")
+
+
 class Cell:
     """One entry of ``workloads`` with its files and metrics."""
 
@@ -103,8 +126,7 @@ class Cell:
                            f"portbench_metric_{name.replace('.', '_').replace('-', '_')}")
 
     def driver(self, config: dict, seed: int, device):
-        mod = load_module(self.driver_path,
-                          f"portbench_driver_{self.traffic['driver']}")
+        mod = load_driver(self.bench_dir, self.traffic["driver"])
         return mod.Driver(config, self.traffic, seed, device)
 
 
@@ -215,7 +237,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device,
     reading = Reading(config=config, traffic=cell.traffic, setup_s=setup_s,
                       calls=calls, window_s=window_s,
                       nodes_per_call=drv.nodes_per_call,
-                      latencies_ms=clock.latencies_ms())
+                      latencies_ms=clock.latencies_ms(),
+                      work=dict(getattr(drv, "work", {})))
     if trace:
         from portbench import devtrace
 

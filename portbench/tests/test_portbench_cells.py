@@ -32,8 +32,9 @@ def _run(workload, seed=SEED, trace=False, fault=None, **kw):
     # the CPU stands in for the kernels' launch counters
     # (faults.cpu_launch_counters), underneath the fault as the kernels'
     # wrappers are on the card
-    with faults.cpu_launch_counters(), (faults.planted(fault, _driver(workload))
-                                        if fault else contextlib.nullcontext()):
+    driver = _driver(workload)
+    with faults.cpu_launch_counters(driver), (faults.planted(fault, driver)
+                                              if fault else contextlib.nullcontext()):
         return run.run_cell(workload, seed, 0.3, trace, CPU, manifest=MANIFEST,
                             sizes=TINY, t0=time.perf_counter(), **kw)
 
@@ -55,19 +56,23 @@ def test_traced_run(workload):
     assert {"busy_s", "window_s"} <= set(result["device"])
     assert set(result["breakdown"]) == {"device_ops", "idle_gaps"}
     cell = run.Cell(MANIFEST, workload)
-    # the CPU has no device trace: only span readers find something
+    # the CPU has no device trace: only span readers find something, and
+    # every one that lists the cell does
     assert set(result["metrics"]) <= {m["name"] for m in cell.per_layer}
-    if workload.startswith("verify"):
-        assert result["metrics"]["admit_us_per_row"]["value"] > 0
+    for m in cell.per_layer:
+        if m["source"] == "program_span":
+            assert result["metrics"][m["name"]]["value"] > 0, m["name"]
+
+
+def test_verify_cell_reports_admit_per_row():
+    spans = {m["name"] for m in run.Cell(MANIFEST, "verify10M.scrub").per_layer
+             if m["source"] == "program_span"}
+    assert "admit_us_per_row" in spans
 
 
 def _inputs(workload, seed):
     cell = run.Cell(MANIFEST, workload)
-    drv = cell.driver({**cell.config, **TINY}, seed, CPU)
-    if cell.traffic["driver"] == "hash_fixed":
-        drv.setup()
-        return [b.clone() for b in drv.batches]
-    return [drv._make_rows(), torch.tensor(drv.altered), torch.tensor(drv.sample)]
+    return cell.driver({**cell.config, **TINY}, seed, CPU).inputs()
 
 
 @pytest.mark.parametrize("workload", CELLS)

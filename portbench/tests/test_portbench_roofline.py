@@ -29,6 +29,33 @@ def test_k4_bound_at_ten_million_rows():
     assert s * 1e3 == pytest.approx(13.648, abs=1e-3)
 
 
+@pytest.mark.parametrize("bound, rows, ms", [
+    (roofline.hash_bound_s, 1 << 20, 1.3648),
+    (roofline.verify_bound_s, 10 * (1 << 20), 13.648),
+])
+def test_bound_from_counted_work(bound, rows, ms):
+    """``bound_s`` over the counted work equals the equal-length bound at
+    both cells' sizes, to the last digit."""
+    blocks = rows * roofline.rate_blocks(576)
+    moved = rows * (576 + roofline.DIGEST) + (4 if bound is roofline.verify_bound_s else 0)
+    assert roofline.bound_s(blocks, moved) == bound(rows, 576)
+    assert roofline.bound_s(blocks, moved)[0] * 1e3 == pytest.approx(ms, abs=1e-3)
+
+
+def test_bound_of_a_mix_is_the_sum_of_its_parts():
+    # 1-block leaves and 4-block branches, each bounded by its operations
+    parts = [(1 << 20, 100), (1 << 16, 532)]
+    each = [roofline.verify_bound_s(n, length) for n, length in parts]
+    assert all(by == "operations" for _, by in each)
+    blocks = sum(n * roofline.rate_blocks(length) for n, length in parts)
+    moved = sum(n * (length + roofline.DIGEST) for n, length in parts) + 4
+    s, by = roofline.bound_s(blocks, moved)
+    assert by == "operations"
+    assert s == pytest.approx(sum(t for t, _ in each), rel=1e-12)
+    # bytes bound a mix only where they outweigh the operations
+    assert roofline.bound_s(1, 10**9)[1] == "bytes"
+
+
 def _reading(config, kernels, copies=(), window_s=1.0, calls=1):
     return Reading(config=config, traffic={}, setup_s=1.0, calls=calls,
                    window_s=window_s, nodes_per_call=config["rows"],
